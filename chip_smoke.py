@@ -1,0 +1,417 @@
+"""Chip smoke test of snappy_tpu_torch on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a CUDA GPU:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels (nvcc, sm_90a) and the shared native
+host codec from the sources, checks each kernel bit for bit against its
+plain PyTorch version at the main path's shapes, drives the framed
+to-device / from-device path through the public entry points in both
+runtime modes (id: 256 MiB, classify: 64 MiB of the seeded benchmark
+corpus) against the native codec, shows through the launch counters that
+the path went through both kernels, and times each kernel against its
+plain version.  Every check raises on failure (nothing is caught), so
+any failure exits non-zero; without a GPU it exits non-zero before
+printing any result.
+
+The last two lines are one JSON object per line: the kernel table,
+then {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+KERNELS = {
+    "crc32c_rows": {
+        "source": "snappy_tpu_torch/csrc/crc32c.cu",
+        "replaces": "snappy_tpu/kernels/crc32c_jnp.py:102",
+    },
+    "flat_exec": {
+        "source": "snappy_tpu_torch/csrc/flat_exec.cu",
+        "replaces": "snappy_tpu/kernels/decode_flat.py:439",
+    },
+}
+
+
+def log(card: str, msg: str) -> None:
+    print(f"[{card}] {msg}", flush=True)
+
+
+def gpu_info() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0].strip()
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of fn() over iters launches (CUDA
+    events, after a warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def timed(fn):
+    """(result, seconds) of fn() on the host clock, ending in a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def corpus_bytes(total: int, seed: int) -> bytes:
+    from snappy_tpu.bench.corpus import make_corpus
+
+    return b"".join(d for _, d in make_corpus(total, seed=seed))
+
+
+def crc_phase(card, dev, seed):
+    """Phase 3: the CRC kernel against its plain version and the native
+    CRC, including a 520-row panel read in place."""
+    from snappy_tpu import native
+    from snappy_tpu_torch.kernels import crc32c as kc
+
+    rng = np.random.default_rng(seed)
+    nb = 256
+    fixed = [0, 1, 255, 256, 257, 4096, 65535, 65536]
+    lengths = np.array(
+        fixed + list(rng.integers(0, 65537, nb - len(fixed))), np.int32)
+    rows = rng.integers(0, 256, (nb, kc.CHUNK), dtype=np.uint8)
+    want = np.array([native.crc32c(rows[i, :n].tobytes())
+                     for i, n in enumerate(lengths)], np.int64)
+    rows_d = torch.from_numpy(rows).to(dev)
+    lens_d = torch.from_numpy(lengths).to(dev)
+    got = kc.crc32c_chunks(rows_d, lens_d)
+    plain = kc.crc32c_chunks_plain(rows_d, lens_d)
+    torch.cuda.synchronize()
+    err = int((got - plain).abs().max())
+    assert np.array_equal(got.cpu().numpy(), want), "CRC kernel != native"
+    assert np.array_equal(plain.cpu().numpy(), want), "CRC plain != native"
+
+    panel = rng.integers(0, 256, (64, 520 * 128), dtype=np.uint8)
+    plens = np.array([65536] * 60 + [0, 1, 4097, 65535], np.int32)
+    pwant = np.array([native.crc32c(panel[i, :n].tobytes())
+                      for i, n in enumerate(plens)], np.int64)
+    panel_d = torch.from_numpy(panel).to(dev)
+    view = panel_d[:, :kc.CHUNK]
+    assert view.stride(0) == 520 * 128
+    pgot = kc.crc32c_chunks(view, torch.from_numpy(plens).to(dev))
+    torch.cuda.synchronize()
+    assert np.array_equal(pgot.cpu().numpy(), pwant), "pitched CRC"
+    log(card, f"crc32c: {nb} rows + 64 pitched rows bit-exact vs plain "
+              f"and native.crc32c (max_abs_err {err})")
+    return err
+
+
+def _stage_decode_plans(data: bytes, nb: int):
+    """Native flat decode plans (stage_flat_dec_batch) for the first nb
+    chunks of native.compress_framed(data)."""
+    from snappy_tpu import native
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.runtime.device_codec import _scan_frames
+
+    fr = native.compress_framed(data)
+    chunks, _ = _scan_frames(fr)
+    comp = [c for c in chunks if c[0] == 0 and c[2] <= 66560][:nb]
+    src = np.frombuffer(fr, np.uint8)
+    rb = kf.rows_b_for(66560)
+    n = len(comp)
+    b_u8 = np.empty((n, rb * 128), np.uint8)
+    meta = np.empty((n, 8 * kf.TRIP_CAP, 128), np.int32)
+    starts = np.zeros((n, 8, 128), np.int32)
+    rc = np.zeros(n, np.int64)
+    arrs = [np.array([c[f] for c in comp], np.int64) for f in (1, 2, 5, 4)]
+    native.stage_flat_dec_batch(src, *arrs, rb, meta, starts, b_u8, rc)
+    ntr = np.maximum(rc, 0).astype(np.int32)
+    return b_u8, meta, starts, ntr, rc, fr, comp
+
+
+def _stage_encode_plans(data: bytes, nb: int):
+    from snappy_tpu import native
+    from snappy_tpu_torch.kernels import encode_flat as ke
+
+    n = min(nb, len(data) // 65536)
+    blocks = np.frombuffer(data[: n * 65536], np.uint8).reshape(n, 65536)
+    lens = np.full(n, 65536, np.int64)
+    b_u8 = np.empty((n, ke.RB_ENC * 128), np.uint8)
+    meta = np.empty((n, 8 * ke.ENC_TRIP_CAP, 128), np.int32)
+    starts = np.zeros((n, 8, 128), np.int32)
+    elem = np.empty((n, native.max_compressed_length(65536) + 8), np.uint8)
+    clens, hdrs, rc = (np.zeros(n, np.int64) for _ in range(3))
+    native.stage_flat_enc_batch(blocks, lens, ke.RB_ENC, meta, starts, b_u8,
+                                ke.TAG_ROWS * 128, elem, clens, hdrs, rc)
+    ntr = np.maximum(rc, 0).astype(np.int32)
+    return b_u8, meta, starts, ntr, elem, clens, hdrs, rc
+
+
+def flat_phase(card, dev, data):
+    """Phase 4: the flat kernel against its plain version on real native
+    plans, decode (out_rows 520) and encode (out_rows 640)."""
+    from snappy_tpu import native
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import encode_flat as ke
+
+    b_u8, meta, starts, ntr, rc_d, fr_src, comp = _stage_decode_plans(data, 64)
+    plan = kf.plan_from_numpy(b_u8, meta, starts, ntr, dev)
+    got = kf.decode_blocks_flat(*plan, dst_max=65536)
+    plain = kf.decode_blocks_flat_plain(*plan, dst_max=65536)
+    torch.cuda.synchronize()
+    err_d = int((got.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    assert torch.equal(got, plain), "flat decode kernel != plain"
+    got_h = got.cpu().numpy()
+    for row, c in enumerate(comp):
+        if rc_d[row] < 0:  # plan over its caps: the runtime decodes on host
+            continue
+        want = native.decompress(fr_src[c[1]:c[1] + c[2]])
+        assert got_h[row, :c[4]].tobytes() == want, f"decode row {row}"
+    clamp = int((((starts >> 10) & 1023) > kf.OUT_ROWS - 128).sum())
+
+    eb, em, es, entr, elem, clens, hdrs, rc = _stage_encode_plans(data, 64)
+    eplan = kf.plan_from_numpy(eb, em, es, entr, dev)
+    egot = ke.encode_blocks_flat(*eplan)
+    eplain = ke.encode_blocks_flat_plain(*eplan)
+    torch.cuda.synchronize()
+    err_e = int((egot.to(torch.int16) - eplain.to(torch.int16)).abs().max())
+    assert torch.equal(egot, eplain), "flat encode kernel != plain"
+    egot_h = egot.cpu().numpy()
+    for i in range(len(entr)):
+        if rc[i] >= 0:
+            assert (egot_h[i, hdrs[i]:clens[i]].tobytes()
+                    == elem[i, hdrs[i]:clens[i]].tobytes()), f"enc row {i}"
+    log(card, f"flat_exec: {len(comp)} decode plans (trips "
+              f"{int((ntr & 0xFFFF).min())}-{int((ntr & 0xFFFF).max())}, {clamp} "
+              f"subpanel words past the clamp row) and {len(entr)} encode "
+              f"plans byte-identical to plain and to the native codec "
+              f"(max_abs_err {max(err_d, err_e)})")
+    return max(err_d, err_e), plan, eplan
+
+
+def flip_payload_byte(fr: bytes) -> bytes:
+    """fr with one payload byte of a middle chunk changed such that the
+    chunk still decodes to its stated length: only its CRC can tell."""
+    from snappy_tpu import native
+    from snappy_tpu.errors import SnappyError
+    from snappy_tpu_torch.runtime.device_codec import _scan_frames
+
+    chunks, _ = _scan_frames(fr)
+    for ctype, p_off, p_len, _crc, dst_len, hdr in chunks[len(chunks) // 2:]:
+        if ctype == 1:  # uncompressed: any byte
+            bad = bytearray(fr)
+            bad[p_off + p_len // 2] ^= 0x40
+            return bytes(bad)
+        for pos in range(p_off + p_len - 1, p_off + hdr, -1):
+            bad = bytearray(fr)
+            bad[pos] ^= 0x40
+            try:
+                blob = native.decompress(bytes(bad[p_off:p_off + p_len]))
+            except SnappyError:  # the flip broke the tag structure
+                continue
+            if len(blob) == dst_len:
+                return bytes(bad)
+    raise AssertionError("no payload byte to flip")
+
+
+def main_path(card, dev, id_mib, classify_mib, seed):
+    """Phases 5-6 through the public entry points; returns rates."""
+    import snappy_tpu_torch as st
+    from snappy_tpu import native
+    from snappy_tpu.spec import framing
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    from snappy_tpu_torch.kernels import crc32c as kc
+    from snappy_tpu_torch.kernels import decode_flat as kf
+
+    rates = {}
+
+    def run(name, nbytes, fn):
+        """Time one call; log its rate and the kernel launches it made."""
+        c0, f0 = kc.launches, kf.launches
+        res, secs = timed(fn)
+        rates[name] = nbytes / secs / 1e9
+        log(card, f"{name}: {nbytes} B in {secs:.4f} s = "
+                  f"{rates[name]:.3f} GB/s (launches: crc32c_rows "
+                  f"{kc.launches - c0}, flat_exec {kf.launches - f0})")
+        return res
+
+    # phase 5: id mode at a real loader size
+    dc.FLAT_MODE = "id"
+    data = corpus_bytes(id_mib << 20, seed)
+    n = len(data)
+    ref = run("host native.compress_framed", n,
+              lambda: native.compress_framed(data, threads=4))
+    run("host native.decompress_framed", n,
+        lambda: native.decompress_framed(ref, threads=4))
+    fr = run("id.compress_framed", n,
+             lambda: st.compress_framed(data, device=dev))
+    assert fr == ref, "id compress_framed != native.compress_framed"
+    arr = run("id.decompress_framed_to_device", n,
+              lambda: st.decompress_framed_to_device(fr, device=dev))
+    assert arr.device == dev and arr.numel() == n
+    assert torch.equal(arr, torch.frombuffer(bytearray(data),
+                                             dtype=torch.uint8).to(dev)), \
+        "decompress_framed_to_device != input"
+    fr2 = run("id.compress_framed_from_device", n,
+              lambda: st.compress_framed_from_device(arr))
+    assert fr2 == ref, "compress_framed_from_device != native stream"
+    raw = native.compress(data)
+    arr2 = run("id.decompress_to_device", n,
+               lambda: st.decompress_to_device(raw, device=dev))
+    assert torch.equal(arr2, arr), "decompress_to_device != input"
+    out = run("id.decompress_framed", n,
+              lambda: st.decompress_framed(fr, device=dev))
+    assert out == data, "id decompress_framed != input"
+    del arr, arr2, out
+    bad = flip_payload_byte(fr)
+    try:
+        st.decompress_framed_to_device(bytes(bad), device=dev)
+    except st.ChecksumError:
+        pass
+    else:
+        raise AssertionError("flipped payload byte not caught")
+    log(card, "id: flipped payload byte raised ChecksumError")
+    small = data[:300_000]
+    assert framing.decompress_framed(
+        st.compress_framed(small, device=dev)) == small, "spec oracle"
+
+    # phase 6: classify mode
+    dc.FLAT_MODE = "classify"
+    data = data[: classify_mib << 20]
+    n = len(data)
+    ref = native.compress_framed(data)
+    out = run("classify.decompress_framed", n,
+              lambda: st.decompress_framed(ref, device=dev))
+    assert out == data, "classify decompress_framed != input"
+    fr = run("classify.compress_framed", n,
+             lambda: st.compress_framed(data, device=dev))
+    assert fr == ref, "classify compress_framed != native.compress_framed"
+    raw = native.compress(data)
+    out = run("classify.decompress", n,
+              lambda: st.decompress(raw, device=dev))
+    assert out == data, "classify raw decompress != input"
+    dc.FLAT_MODE = "id"
+    return rates
+
+
+def kernel_times(card, dev, plan, eplan):
+    """Phase 7: each kernel against its plain version at the main
+    path's shapes (BATCH rows), alternating plain, kernel, kernel,
+    plain."""
+    from snappy_tpu_torch.kernels import crc32c as kc
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    rng = np.random.default_rng(7)
+    panel = torch.from_numpy(
+        rng.integers(0, 256, (dc.BATCH, 520 * 128), dtype=np.uint8)).to(dev)
+    rows = panel[:, :kc.CHUNK]
+    lens = torch.full((dc.BATCH,), kc.CHUNK, dtype=torch.int32, device=dev)
+    out = {}
+    runs = {
+        "crc32c_rows": (lambda: kc.crc32c_chunks(rows, lens),
+                        lambda: kc.crc32c_chunks_plain(rows, lens), 200, 5),
+        "flat_exec": (lambda: kf.decode_blocks_flat(*plan, dst_max=65536),
+                      lambda: kf.decode_blocks_flat_plain(*plan,
+                                                          dst_max=65536),
+                      200, 5),
+    }
+    for name, (kern, plain, k_iters, p_iters) in runs.items():
+        p1 = time_ms(plain, p_iters)
+        k1 = time_ms(kern, k_iters)
+        k2 = time_ms(kern, k_iters)
+        p2 = time_ms(plain, p_iters)
+        out[name] = (min(k1, k2), min(p1, p2))
+        log(card, f"{name} at [{dc.BATCH} rows]: kernel {k1:.4f}/{k2:.4f} "
+                  f"ms, plain {p1:.4f}/{p2:.4f} ms")
+    enc_k = time_ms(lambda: kf.decode_blocks_flat(
+        *eplan, dst_max=81920, out_rows=640), 200)
+    log(card, f"flat_exec encode replay at [{eplan[0].shape[0]} rows]: "
+              f"kernel {enc_k:.4f} ms")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--id-mib", type=int, default=256)
+    ap.add_argument("--classify-mib", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=20260816)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    info = gpu_info()
+    print(info, flush=True)
+    card = info
+    dev = torch.device("cuda:0")
+    log(card, f"phase 1: torch {torch.__version__}, CUDA "
+              f"{torch.version.cuda}, python {sys.version.split()[0]}, "
+              f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+
+    # phase 2: builds from the checkout's sources
+    from snappy_tpu import native
+    from snappy_tpu_torch.kernels import _build
+    from snappy_tpu_torch.kernels import crc32c as kc
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    t0 = time.perf_counter()
+    _build.lib()
+    cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert native.available(), "native host codec failed to build"
+    native_s = time.perf_counter() - t0
+    log(card, f"phase 2: CUDA kernels built in {cuda_s:.2f} s "
+              f"(nvcc {_build.build_seconds}), native codec ready in "
+              f"{native_s:.2f} s")
+
+    crc_err = crc_phase(card, dev, args.seed)
+    flat_data = corpus_bytes(16 << 20, args.seed + 1)
+    flat_err, plan, eplan = flat_phase(card, dev, flat_data)
+
+    for k in dc.HOST_FALLBACKS:
+        dc.HOST_FALLBACKS[k] = 0
+    kc.launches = 0
+    kf.launches = 0
+    rates = main_path(card, dev, args.id_mib, args.classify_mib, args.seed)
+    launches = {"crc32c_rows": kc.launches, "flat_exec": kf.launches}
+    log(card, f"launches on the main path: {launches}; host fallbacks: "
+              f"{dict(dc.HOST_FALLBACKS)}")
+    for name, count in launches.items():
+        assert count > 0, f"{name} never launched on the main path"
+
+    times = kernel_times(card, dev, plan, eplan)
+    errs = {"crc32c_rows": crc_err, "flat_exec": flat_err}
+    table = {"kernels": [
+        {"name": name, "route": "cuda", **KERNELS[name],
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": times[name][0], "plain_ms": times[name][1]}
+        for name in KERNELS]}
+    log(card, "rates GB/s: " + json.dumps(rates))
+    print(json.dumps(table), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
