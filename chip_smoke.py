@@ -4,16 +4,17 @@ Run from the root of a checkout, on a machine with a CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (nvcc, sm_90a) and the shared native
-host codec from the sources, checks each kernel bit for bit against its
-plain PyTorch version at the main path's shapes, drives the framed
-to-device / from-device path through the public entry points in both
-runtime modes (id: 256 MiB, classify: 64 MiB of the seeded benchmark
-corpus) against the native codec, shows through the launch counters that
-the path went through both kernels, and times each kernel against its
-plain version.  Every check raises on failure (nothing is caught), so
-any failure exits non-zero; without a GPU it exits non-zero before
-printing any result.
+It builds the port's CUDA kernels (nvcc, sm_90a, one process per
+source) and the shared native host codec from the sources, checks each
+kernel bit for bit against its plain PyTorch version at the main path's
+shapes, drives the framed to-device / from-device path through the
+public entry points in each runtime engine (id: 256 MiB, classify:
+64 MiB, the device LZ engine "seq": 256 MiB of the seeded benchmark
+corpus) against the native codec, shows through the launch counters,
+reset before each engine's run and read after it, that each run went
+through its kernels, and times each kernel against its plain version.
+Every check raises on failure (nothing is caught), so any failure exits
+non-zero; without a GPU it exits non-zero before printing any result.
 
 The last two lines are one JSON object per line: the kernel table,
 then {"ok": true, "device": {...}}.
@@ -39,7 +40,16 @@ KERNELS = {
         "source": "snappy_tpu_torch/csrc/flat_exec.cu",
         "replaces": "snappy_tpu/kernels/decode_flat.py:439",
     },
+    "seq_decode": {
+        "source": "snappy_tpu_torch/csrc/seq_decode.cu",
+        "replaces": "snappy_tpu/kernels/pallas_decode.py:221",
+    },
+    "seq_encode": {
+        "source": "snappy_tpu_torch/csrc/seq_encode.cu",
+        "replaces": "snappy_tpu/kernels/pallas_encode.py:193",
+    },
 }
+SEQ_ROWS = 64  # rows of the seq kernels' phases and timings (BATCH)
 
 
 def log(card: str, msg: str) -> None:
@@ -54,10 +64,11 @@ def gpu_info() -> str:
     return out.strip().splitlines()[0].strip()
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, warm: bool = True) -> float:
     """Mean device milliseconds of fn() over iters launches (CUDA
-    events, after a warm-up call)."""
-    fn()
+    events, after a warm-up call unless warm is False)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -205,6 +216,123 @@ def flat_phase(card, dev, data):
     return max(err_d, err_e), plan, eplan
 
 
+def _counters():
+    from snappy_tpu_torch.kernels import crc32c as kc
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import encode_seq as kes
+
+    return {"crc32c_rows": kc, "flat_exec": kf, "seq_decode": kds,
+            "seq_encode": kes}
+
+
+def _bad_streams() -> list:
+    """Corrupt element streams (raw format), one or more per error code
+    of the sequential decoder, with its int32 wrap cases."""
+    from snappy_tpu.spec.format import put_uvarint
+
+    lit = b"\x0cabcd"  # a 4-byte literal
+    return [
+        b"\x05" + lit,                                          # dst short
+        b"\x08" + lit + bytes([(3 << 2) | 2, 10, 0]),           # copy < 0
+        b"\x08" + lit + bytes([(3 << 2) | 1, 0]),               # offset 0
+        b"\x0a\x24abc",                                        # literal > src
+        put_uvarint(10) + bytes([63 << 2, 255, 255, 255, 255]) + b"abc",
+        put_uvarint(10) + bytes([63 << 2, 255, 255, 255, 127]) + b"abc",
+        put_uvarint(8) + lit + bytes([(3 << 2) | 3, 1, 0, 0, 128]),
+        put_uvarint(8) + lit + bytes([(3 << 2) | 3, 4, 0, 0, 0]),  # valid
+        put_uvarint(8) + lit + bytes([(3 << 2) | 2]),            # cut header
+        b"\x00",                                                # src trail
+    ]
+
+
+def seq_decode_phase(card, dev, data):
+    """Phase 5: the sequential decode kernel against its plain version and the
+    native decoder: SEQ_ROWS corpus chunks as native.compress emits them
+    in the runtime's 66,560-byte rows, plus corrupt rows hitting every
+    error code (err vectors compared too)."""
+    from snappy_tpu import native
+    from snappy_tpu.spec.format import read_uvarint
+    from snappy_tpu_torch.kernels import decode_seq as kds
+
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
+    streams = [native.compress(b) for b in blocks] + _bad_streams()
+    nb = len(streams)
+    comp = np.zeros((nb, 66560), np.uint8)
+    starts, clens, dlens = (np.zeros(nb, np.int32) for _ in range(3))
+    for i, c in enumerate(streams):
+        dlens[i], starts[i] = read_uvarint(c, 0)
+        comp[i, : len(c)] = np.frombuffer(c, np.uint8)
+        clens[i] = len(c)
+    starts[-1] = clens[-1] + 3  # an element stream past its payload end
+    args = kds.stage_decode(comp, starts, clens, dlens, dev)
+    out, err = kds.decode_blocks_seq(*args, 65536)
+    pout, perr = kds.decode_blocks_seq_plain(*args, 65536)
+    torch.cuda.synchronize()
+    max_err = max(int((out.to(torch.int16) - pout.to(torch.int16)).abs().max()),
+                  int((err - perr).abs().max()))
+    assert torch.equal(out, pout) and torch.equal(err, perr), \
+        "seq decode kernel != plain"
+    codes = err.cpu().numpy()
+    assert set(codes.tolist()) == {0, 1, 2, 3, 4}, codes
+    out_h = out.cpu().numpy()
+    for i, b in enumerate(blocks):
+        assert codes[i] == 0 and out_h[i, : len(b)].tobytes() == b, i
+    log(card, f"seq_decode: {SEQ_ROWS} corpus rows byte-identical to plain "
+              f"and native.decompress, {nb - SEQ_ROWS} corrupt rows with err "
+              f"{codes[SEQ_ROWS:].tolist()} equal to plain "
+              f"(max_abs_err {max_err})")
+    return max_err, tuple(t[:SEQ_ROWS] for t in args)
+
+
+def seq_encode_phase(card, dev, data):
+    """Phase 6: the sequential encode kernel against its plain version and the
+    native encoder: SEQ_ROWS corpus chunks, plus edge rows (empty, 17 and
+    18 bytes, zeros, run-length, random)."""
+    from snappy_tpu import native
+    from snappy_tpu.spec.format import read_uvarint
+    from snappy_tpu_torch.kernels import encode_seq as kes
+
+    rng = np.random.default_rng(11)
+    samples = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
+    samples += [b"", b"x" * 17, b"x" * 18, bytes(65536), b"ab" * 32768,
+                rng.bytes(65536), rng.bytes(1000) + b"z" * 3000]
+    blocks = np.zeros((len(samples), 65536), np.uint8)
+    lens = np.array([len(s) for s in samples], np.int32)
+    for i, s in enumerate(samples):
+        blocks[i, : len(s)] = np.frombuffer(s, np.uint8)
+    args = kes.stage_encode(blocks, lens, dev)
+    comp, clens, err = kes.encode_blocks_seq(*args)
+    pcomp, pclens, perr = kes.encode_blocks_seq_plain(*args)
+    torch.cuda.synchronize()
+    max_err = max(
+        int((comp.to(torch.int16) - pcomp.to(torch.int16)).abs().max()),
+        int((clens - pclens).abs().max()), int((err - perr).abs().max()))
+    assert torch.equal(comp, pcomp) and torch.equal(clens, pclens) \
+        and torch.equal(err, perr), "seq encode kernel != plain"
+    comp_h, clens_h = comp.cpu().numpy(), clens.cpu().numpy()
+    for i, s in enumerate(samples):
+        nat = native.compress(s)
+        assert comp_h[i, : clens_h[i]].tobytes() == \
+            nat[read_uvarint(nat, 0)[1] :], f"encode row {i}"
+    log(card, f"seq_encode: {SEQ_ROWS} corpus rows and {len(samples) - SEQ_ROWS}"
+              f" edge rows byte-identical to plain and native.compress "
+              f"(max_abs_err {max_err})")
+    return max_err, tuple(t[:SEQ_ROWS] for t in args)
+
+
+def break_element(fr: bytes) -> bytes:
+    """fr with the first element of its first compressed chunk made a
+    copy that reaches before the block start."""
+    from snappy_tpu_torch.runtime.device_codec import _scan_frames
+
+    chunks, _ = _scan_frames(fr)
+    _t, p_off, _l, _c, _d, hdr = next(c for c in chunks if c[0] == 0)
+    bad = bytearray(fr)
+    bad[p_off + hdr : p_off + hdr + 3] = bytes([(3 << 2) | 2, 1, 0])
+    return bytes(bad)
+
+
 def flip_payload_byte(fr: bytes) -> bytes:
     """fr with one payload byte of a middle chunk changed such that the
     chunk still decodes to its stated length: only its CRC can tell."""
@@ -230,93 +358,157 @@ def flip_payload_byte(fr: bytes) -> bytes:
     raise AssertionError("no payload byte to flip")
 
 
-def main_path(card, dev, id_mib, classify_mib, seed):
-    """Phases 5-6 through the public entry points; returns rates."""
+def expect_raise(exc, fn, what: str) -> None:
+    try:
+        fn()
+    except exc:
+        return
+    raise AssertionError(f"{what} not caught")
+
+
+def main_path(card, dev, id_mib, classify_mib, seq_mib, seed):
+    """Phases 7-9 through the public entry points, one engine at a time
+    with the launch counters set to 0 just before its run and read just
+    after.  Returns the rates and each engine's launch counts."""
     import snappy_tpu_torch as st
     from snappy_tpu import native
     from snappy_tpu.spec import framing
     from snappy_tpu_torch.runtime import device_codec as dc
 
-    from snappy_tpu_torch.kernels import crc32c as kc
-    from snappy_tpu_torch.kernels import decode_flat as kf
-
+    mods = _counters()
     rates = {}
 
     def run(name, nbytes, fn):
         """Time one call; log its rate and the kernel launches it made."""
-        c0, f0 = kc.launches, kf.launches
+        before = {k: m.launches for k, m in mods.items()}
         res, secs = timed(fn)
         rates[name] = nbytes / secs / 1e9
+        made = {k: m.launches - before[k] for k, m in mods.items()
+                if m.launches > before[k]}
         log(card, f"{name}: {nbytes} B in {secs:.4f} s = "
-                  f"{rates[name]:.3f} GB/s (launches: crc32c_rows "
-                  f"{kc.launches - c0}, flat_exec {kf.launches - f0})")
+                  f"{rates[name]:.3f} GB/s (launches: {made})")
         return res
 
-    # phase 5: id mode at a real loader size
-    dc.FLAT_MODE = "id"
-    data = corpus_bytes(id_mib << 20, seed)
-    n = len(data)
-    ref = run("host native.compress_framed", n,
-              lambda: native.compress_framed(data, threads=4))
-    run("host native.decompress_framed", n,
-        lambda: native.decompress_framed(ref, threads=4))
-    fr = run("id.compress_framed", n,
-             lambda: st.compress_framed(data, device=dev))
-    assert fr == ref, "id compress_framed != native.compress_framed"
-    arr = run("id.decompress_framed_to_device", n,
-              lambda: st.decompress_framed_to_device(fr, device=dev))
-    assert arr.device == dev and arr.numel() == n
-    assert torch.equal(arr, torch.frombuffer(bytearray(data),
-                                             dtype=torch.uint8).to(dev)), \
-        "decompress_framed_to_device != input"
-    fr2 = run("id.compress_framed_from_device", n,
-              lambda: st.compress_framed_from_device(arr))
-    assert fr2 == ref, "compress_framed_from_device != native stream"
-    raw = native.compress(data)
-    arr2 = run("id.decompress_to_device", n,
-               lambda: st.decompress_to_device(raw, device=dev))
-    assert torch.equal(arr2, arr), "decompress_to_device != input"
-    out = run("id.decompress_framed", n,
-              lambda: st.decompress_framed(fr, device=dev))
-    assert out == data, "id decompress_framed != input"
-    del arr, arr2, out
-    bad = flip_payload_byte(fr)
-    try:
-        st.decompress_framed_to_device(bytes(bad), device=dev)
-    except st.ChecksumError:
-        pass
-    else:
-        raise AssertionError("flipped payload byte not caught")
-    log(card, "id: flipped payload byte raised ChecksumError")
-    small = data[:300_000]
-    assert framing.decompress_framed(
-        st.compress_framed(small, device=dev)) == small, "spec oracle"
+    def engine_run(name, fn):
+        for m in mods.values():
+            m.launches = 0
+        fn()
+        counts = {k: m.launches for k, m in mods.items()}
+        log(card, f"{name} run: kernel launches {counts}")
+        return counts
 
-    # phase 6: classify mode
-    dc.FLAT_MODE = "classify"
-    data = data[: classify_mib << 20]
-    n = len(data)
-    ref = native.compress_framed(data)
-    out = run("classify.decompress_framed", n,
-              lambda: st.decompress_framed(ref, device=dev))
-    assert out == data, "classify decompress_framed != input"
-    fr = run("classify.compress_framed", n,
-             lambda: st.compress_framed(data, device=dev))
-    assert fr == ref, "classify compress_framed != native.compress_framed"
-    raw = native.compress(data)
-    out = run("classify.decompress", n,
-              lambda: st.decompress(raw, device=dev))
-    assert out == data, "classify raw decompress != input"
-    dc.FLAT_MODE = "id"
-    return rates
+    full = corpus_bytes(max(id_mib, seq_mib) << 20, seed)
+
+    def id_engine():
+        # phase 7: id mode at a real loader size
+        data = full[: id_mib << 20]
+        n = len(data)
+        ref = run("host native.compress_framed", n,
+                  lambda: native.compress_framed(data, threads=4))
+        run("host native.decompress_framed", n,
+            lambda: native.decompress_framed(ref, threads=4))
+        fr = run("id.compress_framed", n,
+                 lambda: st.compress_framed(data, device=dev))
+        assert fr == ref, "id compress_framed != native.compress_framed"
+        arr = run("id.decompress_framed_to_device", n,
+                  lambda: st.decompress_framed_to_device(fr, device=dev))
+        assert arr.device == dev and arr.numel() == n
+        assert torch.equal(arr, torch.frombuffer(
+            bytearray(data), dtype=torch.uint8).to(dev)), \
+            "decompress_framed_to_device != input"
+        fr2 = run("id.compress_framed_from_device", n,
+                  lambda: st.compress_framed_from_device(arr))
+        assert fr2 == ref, "compress_framed_from_device != native stream"
+        raw = native.compress(data)
+        arr2 = run("id.decompress_to_device", n,
+                   lambda: st.decompress_to_device(raw, device=dev))
+        assert torch.equal(arr2, arr), "decompress_to_device != input"
+        out = run("id.decompress_framed", n,
+                  lambda: st.decompress_framed(fr, device=dev))
+        assert out == data, "id decompress_framed != input"
+        del arr, arr2, out
+        expect_raise(st.ChecksumError, lambda: st.decompress_framed_to_device(
+            flip_payload_byte(fr), device=dev), "id: flipped payload byte")
+        log(card, "id: flipped payload byte raised ChecksumError")
+        small = data[:300_000]
+        assert framing.decompress_framed(
+            st.compress_framed(small, device=dev)) == small, "spec oracle"
+
+    def classify_engine():
+        # phase 8: classify mode
+        dc.FLAT_MODE = "classify"
+        data = full[: classify_mib << 20]
+        n = len(data)
+        ref = native.compress_framed(data)
+        out = run("classify.decompress_framed", n,
+                  lambda: st.decompress_framed(ref, device=dev))
+        assert out == data, "classify decompress_framed != input"
+        fr = run("classify.compress_framed", n,
+                 lambda: st.compress_framed(data, device=dev))
+        assert fr == ref, "classify compress_framed != native.compress_framed"
+        raw = native.compress(data)
+        out = run("classify.decompress", n,
+                  lambda: st.decompress(raw, device=dev))
+        assert out == data, "classify raw decompress != input"
+        dc.FLAT_MODE = "id"
+
+    def seq_engine():
+        # phase 9: the device LZ engine (SNAPPY_TPU_FLAT=0,
+        # SNAPPY_TPU_HOST_PARSE=0): the card decodes and encodes
+        dc.FLAT, dc.HOST_PARSE = False, False
+        data = full[: seq_mib << 20]
+        n = len(data)
+        ref = native.compress_framed(data, threads=4)
+        raw_ref = native.compress(data)
+        fr = run("seq.compress_framed", n,
+                 lambda: st.compress_framed(data, device=dev))
+        assert fr == ref, "seq compress_framed != native.compress_framed"
+        arr = run("seq.decompress_framed_to_device", n,
+                  lambda: st.decompress_framed_to_device(fr, device=dev))
+        assert arr.device == dev and torch.equal(arr, torch.frombuffer(
+            bytearray(data), dtype=torch.uint8).to(dev)), \
+            "seq decompress_framed_to_device != input"
+        fr2 = run("seq.compress_framed_from_device", n,
+                  lambda: st.compress_framed_from_device(arr))
+        assert fr2 == ref, "seq compress_framed_from_device != native stream"
+        out = run("seq.decompress_framed", n,
+                  lambda: st.decompress_framed(fr, device=dev))
+        assert out == data, "seq decompress_framed != input"
+        raw = run("seq.compress", n, lambda: st.compress(data, device=dev))
+        assert raw == raw_ref, "seq compress != native.compress"
+        raw2 = run("seq.compress_from_device", n,
+                   lambda: st.compress_from_device(arr))
+        assert raw2 == raw_ref, "seq compress_from_device != native.compress"
+        del arr, out
+        expect_raise(st.ChecksumError, lambda: st.decompress_framed_to_device(
+            flip_payload_byte(fr), device=dev), "seq: flipped payload byte")
+        expect_raise(st.CorruptError, lambda: st.decompress_framed_to_device(
+            break_element(fr), device=dev), "seq: broken element")
+        expect_raise(st.CorruptError, lambda: st.decompress_framed(
+            break_element(fr), device=dev), "seq: broken element (host out)")
+        log(card, "seq: flipped payload byte raised ChecksumError, broken "
+                  "element raised CorruptError")
+        dc.FLAT, dc.HOST_PARSE = True, True
+
+    counts = {"id": engine_run("id", id_engine),
+              "classify": engine_run("classify", classify_engine),
+              "seq": engine_run("seq", seq_engine)}
+    for eng, kernels in (("id", ["crc32c_rows"]), ("classify", ["flat_exec"]),
+                         ("seq", ["seq_decode", "seq_encode", "crc32c_rows"])):
+        for name in kernels:
+            assert counts[eng][name] > 0, f"{name} never launched in {eng}"
+    return rates, counts
 
 
-def kernel_times(card, dev, plan, eplan):
-    """Phase 7: each kernel against its plain version at the main
-    path's shapes (BATCH rows), alternating plain, kernel, kernel,
-    plain."""
+def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc):
+    """Phase 10: each kernel against its plain version at the main
+    path's shapes (BATCH rows; SEQ_ROWS corpus rows for the sequential
+    kernels, whose plain versions are serial walks), alternating plain,
+    kernel, kernel, plain."""
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import encode_seq as kes
     from snappy_tpu_torch.runtime import device_codec as dc
 
     rng = np.random.default_rng(7)
@@ -327,19 +519,27 @@ def kernel_times(card, dev, plan, eplan):
     out = {}
     runs = {
         "crc32c_rows": (lambda: kc.crc32c_chunks(rows, lens),
-                        lambda: kc.crc32c_chunks_plain(rows, lens), 200, 5),
+                        lambda: kc.crc32c_chunks_plain(rows, lens), 200, 5,
+                        dc.BATCH),
         "flat_exec": (lambda: kf.decode_blocks_flat(*plan, dst_max=65536),
                       lambda: kf.decode_blocks_flat_plain(*plan,
                                                           dst_max=65536),
-                      200, 5),
+                      200, 5, plan[0].shape[0]),
+        "seq_decode": (lambda: kds.decode_blocks_seq(*seq_dec, 65536),
+                       lambda: kds.decode_blocks_seq_plain(*seq_dec, 65536),
+                       20, 1, seq_dec[0].shape[0]),
+        "seq_encode": (lambda: kes.encode_blocks_seq(*seq_enc),
+                       lambda: kes.encode_blocks_seq_plain(*seq_enc),
+                       20, 1, seq_enc[0].shape[0]),
     }
-    for name, (kern, plain, k_iters, p_iters) in runs.items():
-        p1 = time_ms(plain, p_iters)
+    for name, (kern, plain, k_iters, p_iters, nrows) in runs.items():
+        # a serial walk's single call needs no warm-up (seconds each)
+        p1 = time_ms(plain, p_iters, warm=p_iters > 1)
         k1 = time_ms(kern, k_iters)
         k2 = time_ms(kern, k_iters)
-        p2 = time_ms(plain, p_iters)
+        p2 = time_ms(plain, p_iters, warm=p_iters > 1)
         out[name] = (min(k1, k2), min(p1, p2))
-        log(card, f"{name} at [{dc.BATCH} rows]: kernel {k1:.4f}/{k2:.4f} "
+        log(card, f"{name} at [{nrows} rows]: kernel {k1:.4f}/{k2:.4f} "
                   f"ms, plain {p1:.4f}/{p2:.4f} ms")
     enc_k = time_ms(lambda: kf.decode_blocks_flat(
         *eplan, dst_max=81920, out_rows=640), 200)
@@ -352,6 +552,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--id-mib", type=int, default=256)
     ap.add_argument("--classify-mib", type=int, default=64)
+    ap.add_argument("--seq-mib", type=int, default=256)
     ap.add_argument("--seed", type=int, default=20260816)
     args = ap.parse_args()
 
@@ -369,8 +570,6 @@ def main() -> int:
     # phase 2: builds from the checkout's sources
     from snappy_tpu import native
     from snappy_tpu_torch.kernels import _build
-    from snappy_tpu_torch.kernels import crc32c as kc
-    from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.runtime import device_codec as dc
 
     t0 = time.perf_counter()
@@ -386,20 +585,21 @@ def main() -> int:
     crc_err = crc_phase(card, dev, args.seed)
     flat_data = corpus_bytes(16 << 20, args.seed + 1)
     flat_err, plan, eplan = flat_phase(card, dev, flat_data)
+    seq_dec_err, seq_dec = seq_decode_phase(card, dev, flat_data)
+    seq_enc_err, seq_enc = seq_encode_phase(card, dev, flat_data[1 << 23 :])
 
     for k in dc.HOST_FALLBACKS:
         dc.HOST_FALLBACKS[k] = 0
-    kc.launches = 0
-    kf.launches = 0
-    rates = main_path(card, dev, args.id_mib, args.classify_mib, args.seed)
-    launches = {"crc32c_rows": kc.launches, "flat_exec": kf.launches}
-    log(card, f"launches on the main path: {launches}; host fallbacks: "
-              f"{dict(dc.HOST_FALLBACKS)}")
-    for name, count in launches.items():
-        assert count > 0, f"{name} never launched on the main path"
+    rates, counts = main_path(card, dev, args.id_mib, args.classify_mib,
+                              args.seq_mib, args.seed)
+    launches = {name: sum(c[name] for c in counts.values())
+                for name in KERNELS}
+    log(card, f"launches on the main path (id + classify + seq runs): "
+              f"{launches}; host fallbacks: {dict(dc.HOST_FALLBACKS)}")
 
-    times = kernel_times(card, dev, plan, eplan)
-    errs = {"crc32c_rows": crc_err, "flat_exec": flat_err}
+    times = kernel_times(card, dev, plan, eplan, seq_dec, seq_enc)
+    errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
+            "seq_decode": seq_dec_err, "seq_encode": seq_enc_err}
     table = {"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],

@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels of ``snappy_tpu_torch/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into one shared
-library with a plain C interface, loaded with ``ctypes``:
+The sources are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with
+a plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o snappy_tpu_torch/_build/libsnappy_cuda.so
-         snappy_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <source>.o snappy_tpu_torch/csrc/<source>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o snappy_tpu_torch/_build/libsnappy_cuda.so *.o
 
 The library is rebuilt only when the sources' sha256 changes (the
 verify-before-activate rule of ``snappy_tpu/native``).  Unlike
@@ -75,19 +77,39 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel, wait for all, raise on any failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}"
+                          f"\n{err}{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(src_hash: str) -> None:
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, *sources()]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, SO)
+    try:
+        _run_all([[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                   "-fPIC", "-c", "-o", obj, src]
+                  for src, obj in zip(sources(), objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", f"{SO}.{tag}", *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{SO}.{tag}", SO)
     with open(_HASH_FILE + ".tmp", "w") as f:
         f.write(src_hash + "\n")
     os.replace(_HASH_FILE + ".tmp", _HASH_FILE)
@@ -101,6 +123,10 @@ def _declare(lib) -> None:
     lib.snc_flat_exec.restype = ctypes.c_int
     lib.snc_flat_exec.argtypes = [p, i64, p, i32, p, p, p, i64, i64, i32,
                                   i32, p]
+    lib.snc_seq_decode.restype = ctypes.c_int
+    lib.snc_seq_decode.argtypes = [p, i64, i32, p, p, p, p, i32, p, i32, p]
+    lib.snc_seq_encode.restype = ctypes.c_int
+    lib.snc_seq_encode.argtypes = [p, i64, i32, p, p, i32, p, p, i32, p]
     lib.snc_error_string.restype = ctypes.c_char_p
     lib.snc_error_string.argtypes = [ctypes.c_int]
 

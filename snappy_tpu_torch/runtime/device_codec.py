@@ -1,9 +1,17 @@
 """The framed to-device / from-device codec on PyTorch.
 
-Counterpart of ``snappy_tpu/runtime/device_codec.py``, flat engines
-only.  The shared native library (``snappy_tpu.native``) does the
-host's part: the threaded LZ walk, the matcher and the framed
-assembly.  The device's part depends on ``FLAT_MODE``:
+Counterpart of ``snappy_tpu/runtime/device_codec.py``: its flat
+engines and its device LZ engine.  The engine is read from the JAX
+package's variables: ``SNAPPY_TPU_FLAT=1`` (the default) runs a flat
+engine, chosen by ``FLAT_MODE``; ``SNAPPY_TPU_FLAT=0`` with
+``SNAPPY_TPU_HOST_PARSE=0`` runs the device LZ engine.  ``FLAT=0`` with
+``HOST_PARSE=1`` is the JAX package's hybrid decode engine
+(``decode_pretagged``), which is not ported: framed decode raises
+SnappyError there.  Encode under ``FLAT=0`` ignores ``HOST_PARSE``.
+
+The shared native library (``snappy_tpu.native``) does the host's part
+of the flat engines: the threaded LZ walk, the matcher and the framed
+assembly.  Their device part depends on ``FLAT_MODE``:
 
   "id" (default)  decode: the native walk decodes each chunk straight
                   into a 64 KiB row of a 520-row staging panel; the
@@ -16,6 +24,14 @@ assembly.  The device's part depends on ``FLAT_MODE``:
                   executes them (``kernels.decode_flat``): framed decode,
                   segmented raw decode, and the encode replay of the
                   host matcher's element.
+
+The device LZ engine ("seq") does the LZ work on the device: each
+compressed chunk's payload goes up as is and one warp decodes it
+(``kernels.decode_seq``), each 64 KiB chunk goes up as is and one warp
+runs the reference matcher on it (``kernels.encode_seq``), and the
+chunk CRCs are computed on the device too.  Only the elements, the CRCs
+and the error codes come back.  Raw-stream decode stays on the host, as
+in the JAX package: a raw stream is not a set of independent blocks.
 
 Host buffers that feed a transfer are pinned on a GPU and reused in
 rounds of ``_NSETS``; each round records a CUDA event after its
@@ -68,11 +84,17 @@ from snappy_tpu_torch.kernels.decode_flat import (
     decode_blocks_flat,
     rows_b_for,
 )
+from snappy_tpu_torch.kernels.decode_seq import ERR_MESSAGES, decode_blocks_seq
+from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
 
 # Chunks per device batch; the same variable as the JAX package's.
 BATCH = int(os.environ.get("SNAPPY_TPU_BATCH", "64"))
 # Device CRC-32C of every chunk; "0" checks and computes CRCs on the host.
 DEVICE_CRC = os.environ.get("SNAPPY_TPU_DEVICE_CRC", "1") != "0"
+# Flat engines ("1", default) or the device LZ engine ("0", with
+# HOST_PARSE "0"); the same variables as the JAX package's.
+FLAT = os.environ.get("SNAPPY_TPU_FLAT", "1") != "0"
+HOST_PARSE = os.environ.get("SNAPPY_TPU_HOST_PARSE", "1") != "0"
 # Flat engine mode: "id" (identity staging + device CRC) or "classify".
 FLAT_MODE = os.environ.get("SNAPPY_TPU_FLAT_MODE", "id")
 
@@ -96,6 +118,24 @@ def _native():
 
 def _threads() -> int:
     return min(4, os.cpu_count() or 1)
+
+
+def _bucket_cmax(kmax: int) -> int:
+    """Payload row width for a batch whose widest payload is kmax bytes:
+    the JAX package's buckets (16,640 / 33,280 / 66,560)."""
+    return next((c for c in (16640, 33280) if kmax <= c), _DECODE_CMAX)
+
+
+def _decode_engine() -> str:
+    """The framed decode engine: "id", "classify" or "seq"."""
+    if FLAT:
+        return "id" if FLAT_MODE == "id" else "classify"
+    if HOST_PARSE:
+        raise SnappyError(
+            "the hybrid host-parse decode engine (SNAPPY_TPU_FLAT=0 with "
+            "SNAPPY_TPU_HOST_PARSE=1) is not ported to snappy_tpu_torch; "
+            "SNAPPY_TPU_HOST_PARSE=0 selects the device LZ engine")
+    return "seq"
 
 
 class _HostSet:
@@ -168,9 +208,9 @@ def _check_crcs(grp_chunks, crc_h: np.ndarray, skip=()) -> None:
             raise ChecksumError(ch[3], None)
 
 
-def _chunk_lens(nb: int, cnt: int) -> np.ndarray:
-    """Lengths of the cnt 64 KiB chunks that hold nb bytes."""
-    cs = MAX_CHUNK_UNCOMPRESSED
+def _chunk_lens(nb: int, cnt: int,
+                cs: int = MAX_CHUNK_UNCOMPRESSED) -> np.ndarray:
+    """Lengths of the cnt cs-byte chunks that hold nb bytes."""
     return np.minimum(nb - np.arange(cnt, dtype=np.int64) * cs, cs)
 
 
@@ -261,6 +301,7 @@ def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
     host array ``out`` at per-chunk offsets ``dst_offs``."""
     device = resolve(device)
     _native()
+    engine = _decode_engine()
     subset = list(subset)
     host_checked: set = set()  # chunks whose CRC the host verifies
     all_comp = [i for i in subset if chunks[i][0] == CHUNK_COMPRESSED]
@@ -279,9 +320,12 @@ def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
 
     if comp_idx:
         use_dev_crc = verify_checksums and DEVICE_CRC
-        if FLAT_MODE == "id":
+        if engine == "id":
             _decode_id_batches(src_arr, chunks, comp_idx, dst_offs, out,
                                use_dev_crc, device)
+        elif engine == "seq":
+            _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
+                                use_dev_crc, device)
         else:
             host_checked |= _decode_classify_batches(
                 src_arr, chunks, comp_idx, dst_offs, out, use_dev_crc,
@@ -383,10 +427,7 @@ def _decode_classify_batches(src_arr, chunks, comp_idx, dst_offs, out,
         grp = comp_idx[base : base + BATCH]
         ng = len(grp)
         # size B rows to the batch's widest payload
-        batch_kmax = max(chunks[i][2] for i in grp)
-        cmax = next((c for c in (16640, 33280) if batch_kmax <= c),
-                    _DECODE_CMAX)
-        rb = rows_b_for(cmax)
+        rb = rows_b_for(_bucket_cmax(max(chunks[i][2] for i in grp)))
         hs = sets[k % _NSETS]
         hs.wait()
         offs64, lens64, hdrs64, dstl64 = _batch_arrays(chunks, grp)
@@ -436,6 +477,90 @@ def _decode_classify_batches(src_arr, chunks, comp_idx, dst_offs, out,
     return host_decoded
 
 
+def _seq_dec_sets(device, rows: int, host_out: bool):
+    """Host sets of the device LZ decode: payload rows, the per-row
+    (starts, clens, dlens, CRC lengths) words, and what comes back."""
+    shapes = dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
+                  meta=((4 * rows,), torch.int32),
+                  err=((rows,), torch.int32), crc=((rows,), torch.int64))
+    if host_out:
+        shapes["res"] = ((rows, MAX_CHUNK_UNCOMPRESSED), torch.uint8)
+    return _host_sets(device, **shapes)
+
+
+def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
+                  host_out: bool) -> torch.Tensor:
+    """Stage one batch of scanned chunks into ``hs``'s pinned payload
+    rows, upload them, launch the sequential decode (and the CRC of its
+    rows when asked), and queue the fetch of the error codes and CRCs
+    (and with ``host_out`` the decoded rows) into ``hs``.  A compressed
+    chunk's row is its payload (the element
+    stream starts after the varint header); an uncompressed chunk's row
+    is its data, decoded as an empty stream and copied into place on
+    the device.  Returns the device rows [len(grp), 64 KiB]."""
+    ng = len(grp)
+    hs.wait()
+    cmax = _bucket_cmax(max(ch[2] for ch in grp))
+    # bytes past a payload's end are left as they are: the decoder's
+    # result does not depend on them
+    rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
+    meta = hs.np["meta"][: 4 * ng].reshape(4, ng)
+    for row, (ctype, p_off, p_len, _crc, dst_len, hdr) in enumerate(grp):
+        rows[row, :p_len] = src_arr[p_off : p_off + p_len]
+        if ctype == CHUNK_COMPRESSED:
+            meta[:, row] = (hdr, p_len, dst_len, dst_len)
+        else:
+            meta[:, row] = (0, 0, 0, dst_len)
+    comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
+    meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
+    dec, err = decode_blocks_seq(comp, meta_d[0], meta_d[1], meta_d[2],
+                                 out_max=MAX_CHUNK_UNCOMPRESSED)
+    for row, ch in enumerate(grp):
+        if ch[0] != CHUNK_COMPRESSED:
+            dec[row, : ch[2]].copy_(comp[row, : ch[2]])
+    if with_crc:
+        hs.t["crc"][:ng].copy_(crc32c_chunks(dec, meta_d[3]),
+                               non_blocking=True)
+    hs.t["err"][:ng].copy_(err, non_blocking=True)
+    if host_out:
+        hs.t["res"][:ng].copy_(dec, non_blocking=True)
+    hs.record()
+    return dec
+
+
+def _check_seq(grp, hs: _HostSet, with_crc: bool) -> None:
+    """Raise for the first row of a finished batch that failed: its
+    decode error (CorruptError), else its CRC (ChecksumError)."""
+    err, crc = hs.np["err"], hs.np["crc"]
+    for row, ch in enumerate(grp):
+        if err[row]:
+            raise CorruptError(ERR_MESSAGES.get(int(err[row]), "decode error"))
+        if with_crc and int(crc[row]) != unmask_crc(ch[3]):
+            raise ChecksumError(ch[3], None)
+
+
+def _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
+                        use_dev_crc: bool, device) -> None:
+    """Device LZ engine, host output: the payloads go up, the sequential
+    kernel decodes and CRCs them, the decoded rows come back.  Batch k+1
+    is staged while batch k runs."""
+    sets = _seq_dec_sets(device, min(BATCH, len(comp_idx)), host_out=True)
+
+    def dispatch(k, base):
+        grp = [chunks[i] for i in comp_idx[base : base + BATCH]]
+        hs = sets[k % _NSETS]
+        _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True)
+        return comp_idx[base : base + BATCH], grp, hs
+
+    for idx, grp, hs in _one_behind(range(0, len(comp_idx), BATCH), dispatch):
+        hs.wait()
+        _check_seq(grp, hs, use_dev_crc)
+        res = hs.np["res"]
+        for row, i in enumerate(idx):
+            d = chunks[i][4]
+            out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
+
+
 def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
                   dlens: np.ndarray) -> None:
     """Id-stage one group of scanned framed chunks into staging rows:
@@ -478,41 +603,55 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     carries the decoded bytes, each chunk's CRC-32C is checked on the
     device where the bytes land, and each batch's 64 KiB images go
     straight into one preallocated output tensor.  Only the CRC values
-    come back.  Streams whose chunks are not all full 64 KiB rows but
-    the last, and classify mode, decode through ``decompress_framed``
-    and upload the result."""
+    come back.  Device LZ engine: the payloads go up, the sequential
+    kernel decodes them and checks their CRCs on the device, and the
+    decoded rows go into the output tensor the same way; only the error
+    codes and CRC values come back.  Streams whose chunks are not all
+    full 64 KiB rows but the last, and classify mode, decode through
+    ``decompress_framed`` and upload the result."""
     chunks, total = _scan_frames(data)
     device = resolve(device)
     _native()
     uniform = total > 0 and all(
         ch[4] == _CRC_CHUNK for ch in chunks[:-1]) and all(
         ch[2] <= _DECODE_CMAX for ch in chunks if ch[0] == CHUNK_COMPRESSED)
-    if not (FLAT_MODE == "id" and DEVICE_CRC and uniform):
+    engine = _decode_engine()
+    if not (engine in ("id", "seq") and DEVICE_CRC and uniform):
         return _upload_bytes(
             decompress_framed(data, verify_checksums, device=device), device)
     src_arr = np.frombuffer(data, np.uint8)
     out = torch.empty(total, dtype=torch.uint8, device=device)
-    sets = _id_sets(device)
+    seq = engine == "seq"
+    if seq:
+        sets = _seq_dec_sets(device, min(BATCH, len(chunks)), host_out=False)
+    else:
+        sets = _id_sets(device)
 
     def dispatch(k, base):
         grp = chunks[base : base + BATCH]
         hs = sets[k % _NSETS]
-        panel = _dispatch_id(src_arr, grp, hs, device, verify_checksums)
+        if seq:
+            rows = _dispatch_seq(src_arr, grp, hs, device, verify_checksums,
+                                 host_out=False)
+        else:
+            rows = _dispatch_id(src_arr, grp, hs, device, verify_checksums)
         # every chunk but the stream's last fills its 64 KiB row
         lo = base * _CRC_CHUNK
-        nb = int(hs.np["lens"][: len(grp)].sum())
+        nb = sum(ch[4] for ch in grp)
         full = nb // _CRC_CHUNK
         if full:
             out[lo : lo + full * _CRC_CHUNK].view(full, _CRC_CHUNK).copy_(
-                panel[:full, :_CRC_CHUNK])
+                rows[:full, :_CRC_CHUNK])
         if nb > full * _CRC_CHUNK:
             out[lo + full * _CRC_CHUNK : lo + nb].copy_(
-                panel[full, : nb - full * _CRC_CHUNK])
+                rows[full, : nb - full * _CRC_CHUNK])
         return grp, hs
 
     for grp, hs in _one_behind(range(0, len(chunks), BATCH), dispatch):
         hs.wait()
-        if verify_checksums:
+        if seq:
+            _check_seq(grp, hs, verify_checksums)
+        elif verify_checksums:
             _check_crcs(grp, hs.np["crc"])
     return out
 
@@ -570,10 +709,11 @@ def decompress(data: bytes, device=None) -> bytes:
     """Raw Snappy stream decode to host bytes.  Id mode: the native walk
     is the decode (a raw stream has no CRC for the device to check).
     Classify mode: the segmented flat engine on the device, the native
-    decoder for unplannable streams."""
+    decoder for unplannable streams.  Device LZ engine: the native
+    decoder, as in the JAX package."""
     dst_len, hdr = read_uvarint(data, 0)
     nat = _native()
-    if FLAT_MODE != "id":
+    if FLAT and FLAT_MODE != "id":
         got = _decompress_raw_flat(data, dst_len, hdr, resolve(device))
         if got is not None:
             return got.cpu().numpy().tobytes()
@@ -589,10 +729,14 @@ def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
     64 KiB history carries copy sources) and each batch is copied into
     one preallocated device tensor.  Classify mode: the segmented flat
     engine.  Streams with a copy offset past 64 KiB (which no real
-    encoder emits) or an unplannable segment decode on the host."""
+    encoder emits) or an unplannable segment decode on the host, and so
+    does every stream under the device LZ engine, as in the JAX
+    package."""
     dst_len, hdr = read_uvarint(data, 0)
     device = resolve(device)
     nat = _native()
+    if not FLAT:
+        return _upload_bytes(nat.decompress(data), device)
     if FLAT_MODE != "id":
         got = _decompress_raw_flat(data, dst_len, hdr, device)
         if got is not None:
@@ -726,43 +870,164 @@ def _encode_batches(data, chunk_size: int, device):
             yield base + i, int(lens[i]), blob
 
 
+def _stored(chunk_len: int, clen: int) -> bool:
+    """Whether the framed format stores a chunk uncompressed, given the
+    length of its element."""
+    return framed_chunk_type(
+        chunk_len, len(put_uvarint(chunk_len)) + clen) == CHUNK_UNCOMPRESSED
+
+
+def _framed_record(chunk_len: int, elem: bytes, crc: int, raw) -> bytes:
+    """One framed chunk record: the compressed body, or the chunk's bytes
+    ``raw`` when the element saves under 12.5%."""
+    if _stored(chunk_len, len(elem)):
+        chunk_type, body = CHUNK_UNCOMPRESSED, bytes(raw)
+    else:
+        chunk_type, body = CHUNK_COMPRESSED, put_uvarint(chunk_len) + elem
+    blen = len(body) + 4
+    return (bytes((chunk_type, blen & 0xFF, (blen >> 8) & 0xFF,
+                   (blen >> 16) & 0xFF))
+            + mask_crc(crc).to_bytes(4, "little") + body)
+
+
+def _encode_seq(src, cs: int, device, with_crc: bool):
+    """Device LZ engine: yield (chunk_index, chunk_len, element, crc,
+    stored) for the cs-byte chunks of ``src``, host bytes or a flat
+    uint8 tensor on ``device``.
+
+    Host bytes go up through pinned rows; a device tensor is encoded in
+    place.  The sequential kernel encodes each batch of chunk rows, and
+    with ``with_crc`` the CRC kernel checksums them (``crc`` is else
+    None).  What comes back is each batch's lengths and CRCs, then its
+    elements cut to the batch's longest; the trimmed fetch of batch k is
+    queued while batch k+1 is staged, when its lengths are on the host.
+    A device tensor's chunk bytes also come back (``stored``, else None)
+    where the host needs them: for chunks the framed format stores
+    uncompressed, and for every chunk when the host CRCs them."""
+    on_dev = isinstance(src, torch.Tensor)
+    n = int(src.numel()) if on_dev else len(src)
+    n_chunks = -(-n // cs)
+    if n_chunks == 0:
+        return
+    rows_n = min(BATCH, n_chunks)
+    cap = comp_width(cs)
+    shapes = dict(lens=((rows_n,), torch.int32), clens=((rows_n,), torch.int32),
+                  crc=((rows_n,), torch.int64),
+                  comp=((rows_n * cap,), torch.uint8))
+    # device input: rows the host fetches; host input: pinned staging rows
+    shapes["stored" if on_dev else "blocks"] = ((rows_n * cs,), torch.uint8)
+    sets = _host_sets(device, **shapes)
+    src_np = None if on_dev else np.frombuffer(src, np.uint8)
+    pending = []
+
+    def rows_of(lo: int, nb: int, cnt: int, hs: _HostSet) -> torch.Tensor:
+        if not on_dev:
+            hs.np["blocks"][:nb] = src_np[lo : lo + nb]
+            return _upload(hs.t["blocks"][: cnt * cs], device).view(cnt, cs)
+        if nb == cnt * cs:
+            return src[lo : lo + nb].view(cnt, cs)
+        rows = torch.zeros(cnt * cs, dtype=torch.uint8, device=device)
+        rows[:nb] = src[lo : lo + nb]  # the stream's short last chunk
+        return rows.view(cnt, cs)
+
+    def fetch(b: dict) -> None:
+        if b["kmax"] is not None:
+            return
+        hs, cnt, lens = b["hs"], b["cnt"], b["lens"]
+        hs.wait()  # its lengths (and CRCs) are on the host
+        clens = hs.np["clens"][:cnt]
+        kmax = min((int(clens.max()) + 511) & ~511, cap)
+        hs.t["comp"][: cnt * kmax].view(cnt, kmax).copy_(
+            b["comp"][:, :kmax].contiguous(), non_blocking=True)
+        if on_dev:
+            b["stored"] = {i for i in range(cnt) if not with_crc or _stored(
+                int(lens[i]), int(clens[i]))}
+            for i in b["stored"]:
+                hs.t["stored"][i * cs : i * cs + lens[i]].copy_(
+                    b["rows"][i, : lens[i]], non_blocking=True)
+        hs.record()
+        b["kmax"] = kmax
+
+    def dispatch(k, base):
+        cnt = min(BATCH, n_chunks - base)
+        lo = base * cs
+        nb = min(n, lo + cnt * cs) - lo
+        hs = sets[k % _NSETS]
+        hs.wait()
+        lens = _chunk_lens(nb, cnt, cs)
+        hs.np["lens"][:cnt] = lens
+        rows = rows_of(lo, nb, cnt, hs)
+        if pending:
+            fetch(pending.pop())
+        lens_d = _upload(hs.t["lens"][:cnt], device)
+        comp, clens, _err = encode_blocks_seq(rows, lens_d)  # lens are valid
+        hs.t["clens"][:cnt].copy_(clens, non_blocking=True)
+        if with_crc:
+            hs.t["crc"][:cnt].copy_(crc32c_chunks(rows, lens_d),
+                                    non_blocking=True)
+        hs.record()
+        b = dict(base=base, cnt=cnt, hs=hs, rows=rows, comp=comp, lens=lens,
+                 kmax=None, stored=set())
+        pending.append(b)
+        return b
+
+    for b in _one_behind(range(0, n_chunks, BATCH), dispatch):
+        fetch(b)  # the last batch: no later dispatch queued its fetch
+        hs = b["hs"]
+        hs.wait()
+        comp = hs.np["comp"][: b["cnt"] * b["kmax"]].reshape(b["cnt"],
+                                                            b["kmax"])
+        for i in range(b["cnt"]):
+            ln = int(b["lens"][i])
+            yield (b["base"] + i, ln, comp[i, : hs.np["clens"][i]].tobytes(),
+                   int(hs.np["crc"][i]) if with_crc else None,
+                   hs.np["stored"][i * cs : i * cs + ln]
+                   if i in b["stored"] else None)
+
+
 def compress(data: bytes, device=None) -> bytes:
     """Raw Snappy stream (per-64 KiB fragments)."""
     if len(data) > MAX_UNCOMPRESSED_LEN:
         raise TooLargeError(len(data))
+    device = resolve(device)
     out = bytearray(put_uvarint(len(data)))
-    for _, _, blob in _encode_batches(data, MAX_BLOCK_SIZE, resolve(device)):
-        out += blob
+    if FLAT:
+        for _, _, blob in _encode_batches(data, MAX_BLOCK_SIZE, device):
+            out += blob
+    else:
+        for _, _, elem, _, _ in _encode_seq(data, MAX_BLOCK_SIZE, device,
+                                            with_crc=False):
+            out += elem
     return bytes(out)
 
 
 def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
                     device=None) -> bytes:
     """Framed (.sz) stream.  Id mode with 64 KiB chunks: device CRCs
-    plus one native matcher-and-assembly call per batch.  Otherwise
-    chunk elements from ``_encode_batches`` with host CRCs."""
+    plus one native matcher-and-assembly call per batch.  Device LZ
+    engine: elements and CRCs from the device (``_encode_seq``).
+    Otherwise chunk elements from ``_encode_batches`` with host CRCs."""
     if not 0 < chunk_size <= MAX_CHUNK_UNCOMPRESSED:
         raise ValueError(f"chunk_size must be in (0, 65536], got {chunk_size}")
     device = resolve(device)
     nat = _native()
-    if (FLAT_MODE == "id" and chunk_size == MAX_CHUNK_UNCOMPRESSED
+    if (FLAT and FLAT_MODE == "id" and chunk_size == MAX_CHUNK_UNCOMPRESSED
             and len(data)):
         return _compress_framed_id(data, device)
+    if FLAT:
+        chunks = ((idx, ln, blob, None) for idx, ln, blob
+                  in _encode_batches(data, chunk_size, device))
+    else:
+        chunks = ((idx, ln, elem, crc) for idx, ln, elem, crc, _
+                  in _encode_seq(data, chunk_size, device, DEVICE_CRC))
     data_v = memoryview(data)
     out = bytearray(STREAM_ID_CHUNK)
-    for idx, chunk_len, blob in _encode_batches(data, chunk_size, device):
+    for idx, chunk_len, blob, crc in chunks:
         off = idx * chunk_size
         chunk = data_v[off : off + chunk_len]
-        checksum = mask_crc(nat.crc32c(bytes(chunk)))
-        body = put_uvarint(chunk_len) + blob
-        chunk_type = framed_chunk_type(chunk_len, len(body))
-        if chunk_type == CHUNK_UNCOMPRESSED:
-            body = bytes(chunk)
-        blen = len(body) + 4
-        out += bytes((chunk_type, blen & 0xFF, (blen >> 8) & 0xFF,
-                      (blen >> 16) & 0xFF))
-        out += checksum.to_bytes(4, "little")
-        out += body
+        if crc is None:
+            crc = nat.crc32c(bytes(chunk))
+        out += _framed_record(chunk_len, blob, crc, chunk)
     return bytes(out)
 
 
@@ -824,7 +1089,10 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     Each 64 KiB chunk's CRC-32C is computed on the device before its
     bytes leave; the device-to-host copy of batch k+1 overlaps the
     native matcher and assembler of batch k.  Byte-identical to
-    ``compress_framed(bytes(arr))`` in id mode: same matcher, same CRCs."""
+    ``compress_framed(bytes(arr))`` in id mode: same matcher, same CRCs.
+    Device LZ engine: the tensor's chunks are encoded and CRC'd where
+    they lie (``_encode_seq``); only elements and CRCs come back, plus
+    the bytes of chunks stored uncompressed."""
     _check_uint8(arr)
     device = arr.device if device is None else resolve(device)
     arr = arr.to(device).reshape(-1)
@@ -833,6 +1101,14 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
         return bytes(STREAM_ID_CHUNK)
     nat = _native()
     cs = MAX_CHUNK_UNCOMPRESSED
+    if not FLAT:
+        out = bytearray(STREAM_ID_CHUNK)
+        for _, ln, elem, crc, stored in _encode_seq(arr, cs, device,
+                                                    DEVICE_CRC):
+            if crc is None:
+                crc = nat.crc32c(stored.tobytes())
+            out += _framed_record(ln, elem, crc, stored)
+        return bytes(out)
     n_chunks = -(-n // cs)
     sets = _crc_sets(device, min(BATCH, n_chunks), "rows")
 
@@ -870,8 +1146,18 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     """Raw-format counterpart of ``compress_framed_from_device``.  The raw
     format has no checksums, so the device has nothing to compute: fetch
     the tensor once, then the native encoder emits the stream.
-    Byte-identical to ``compress(bytes(arr))`` in id mode."""
+    Byte-identical to ``compress(bytes(arr))`` in id mode.  Device LZ
+    engine: the tensor's 64 KiB blocks are encoded where they lie and
+    only the elements come back."""
     _check_uint8(arr)
+    if not FLAT:
+        device = arr.device if device is None else resolve(device)
+        arr = arr.to(device).reshape(-1)
+        out = bytearray(put_uvarint(int(arr.numel())))
+        for _, _, elem, _, _ in _encode_seq(arr, MAX_BLOCK_SIZE, device,
+                                            with_crc=False):
+            out += elem
+        return bytes(out)
     if device is not None:
         arr = arr.to(resolve(device))
     host = arr.reshape(-1).cpu().numpy()

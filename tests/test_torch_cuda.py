@@ -1,6 +1,6 @@
 """CUDA kernels of the torch port on the card: each kernel against its
 plain PyTorch version and the native codec, and the main path through
-both kernels.  Tolerance: 0 (bit-exact).
+the kernels in every runtime mode.  Tolerance: 0 (bit-exact).
 
 This file imports no jax, so it runs where the card is:
 
@@ -15,8 +15,11 @@ import torch
 from snappy_tpu import native
 from snappy_tpu.bench.corpus import make_corpus
 from snappy_tpu_torch.kernels import crc32c as kc
+from snappy_tpu.spec.format import put_uvarint, read_uvarint
 from snappy_tpu_torch.kernels import decode_flat as kf
+from snappy_tpu_torch.kernels import decode_seq as kds
 from snappy_tpu_torch.kernels import encode_flat as ke
+from snappy_tpu_torch.kernels import encode_seq as kes
 from snappy_tpu_torch.runtime import device_codec as dc
 
 pytestmark = pytest.mark.cuda
@@ -129,12 +132,87 @@ def test_flat_kernel_matches_plain_encode(cuda_device):
             assert got_h[i, : clens[i]].tobytes() == elem[i, : clens[i]].tobytes()
 
 
-@pytest.mark.parametrize("mode", ["id", "classify"])
+def _seq_rows(streams, cmax):
+    """(comp, starts, clens, dlens) numpy rows of raw streams."""
+    comp = np.zeros((len(streams), cmax), np.uint8)
+    starts, clens, dlens = (np.zeros(len(streams), np.int32) for _ in range(3))
+    for i, c in enumerate(streams):
+        dlens[i], starts[i] = read_uvarint(c, 0)
+        comp[i, : len(c)] = np.frombuffer(c, np.uint8)
+        clens[i] = len(c)
+    return comp, starts, clens, dlens
+
+
+# corrupt element streams, one per error code, and the 4-byte-field forms
+_BAD_STREAMS = [
+    b"\x05\x0cabcd",                                   # ERR_DST_SHORT
+    b"\x08\x0cabcd" + bytes([(3 << 2) | 2, 10, 0]),     # ERR_COPY
+    b"\x0a\x24abc",                                    # ERR_LITERAL
+    put_uvarint(10) + bytes([63 << 2, 255, 255, 255, 127]) + b"abc",
+    put_uvarint(8) + b"\x0cabcd" + bytes([(3 << 2) | 3, 1, 0, 0, 128]),
+    put_uvarint(8) + b"\x0cabcd" + bytes([(3 << 2) | 3, 4, 0, 0, 0]),
+    put_uvarint(8) + b"\x0cabcd" + bytes([(3 << 2) | 2]),
+]
+
+
+@pytest.mark.parametrize("cmax,out_max", [(66560, 65536), (100_003, 99_999)])
+def test_seq_decode_kernel_matches_plain(cuda_device, rng, cmax, out_max):
+    """Corpus rows and corrupt rows; shared-memory rows (66,560) and rows
+    too wide for it (device-memory path); a row-strided view."""
+    data = _corpus(18, 16 << 16)
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(16)]
+    blocks += [bytes(65536), rng.bytes(65536), b""]
+    streams = [native.compress(b) for b in blocks] + _BAD_STREAMS + [b"\x00"]
+    comp, starts, clens, dlens = _seq_rows(streams, cmax + 5)
+    starts[-1] = clens[-1] + 3  # ERR_SRC_TRAIL
+    c, st, cl, dl = kds.stage_decode(comp, starts, clens, dlens, cuda_device)
+    before = kds.launches
+    out, err = kds.decode_blocks_seq(c[:, :cmax], st, cl, dl, out_max)
+    torch.cuda.synchronize()
+    assert kds.launches == before + 1
+    pout, perr = kds.decode_blocks_seq_plain(c[:, :cmax], st, cl, dl, out_max)
+    assert torch.equal(err, perr) and torch.equal(out, pout)
+    assert set(err.tolist()) == {0, 1, 2, 3, 4}
+    out_h = out.cpu().numpy()
+    for i, b in enumerate(blocks):
+        assert out_h[i, : len(b)].tobytes() == b
+
+
+def test_seq_encode_kernel_matches_plain(cuda_device, rng):
+    data = _corpus(19, 16 << 16)
+    samples = [data[i << 16 : (i + 1) << 16] for i in range(16)]
+    samples += [b"", b"x" * 17, b"x" * 18, bytes(65536), b"ab" * 32768,
+                rng.bytes(65536), rng.bytes(4097)]
+    width = 65536 + 100  # wider than a block: rows past 64 KiB are ERR_LEN
+    blocks = np.zeros((len(samples) + 1, width), np.uint8)
+    lens = np.array([len(s) for s in samples] + [65537], np.int32)
+    for i, s in enumerate(samples):
+        blocks[i, : len(s)] = np.frombuffer(s, np.uint8)
+    b, l = kes.stage_encode(blocks, lens, cuda_device)
+    before = kes.launches
+    comp, clens, err = kes.encode_blocks_seq(b, l)
+    torch.cuda.synchronize()
+    assert kes.launches == before + 1
+    pcomp, pclens, perr = kes.encode_blocks_seq_plain(b, l)
+    assert torch.equal(comp, pcomp) and torch.equal(clens, pclens)
+    assert torch.equal(err, perr) and err.tolist()[-1] == kes.ERR_LEN
+    comp_h, clens_h = comp.cpu().numpy(), clens.cpu().numpy()
+    for i, s in enumerate(samples):
+        nat = native.compress(s)
+        assert comp_h[i, : clens_h[i]].tobytes() == nat[read_uvarint(nat, 0)[1] :]
+
+
+@pytest.mark.parametrize("mode", ["id", "classify", "seq"])
 def test_main_path_through_kernels(cuda_device, mode, monkeypatch, rng):
-    monkeypatch.setattr(dc, "FLAT_MODE", mode)
+    if mode == "seq":
+        monkeypatch.setattr(dc, "FLAT", False)
+        monkeypatch.setattr(dc, "HOST_PARSE", False)
+    else:
+        monkeypatch.setattr(dc, "FLAT_MODE", mode)
     monkeypatch.setattr(dc, "BATCH", 8)
     data = _corpus(17, 3 << 20) + rng.bytes(100_000)
     crc0, flat0 = kc.launches, kf.launches
+    seq0 = kds.launches, kes.launches
     stream = dc.compress_framed(data, device=cuda_device)
     assert stream == native.compress_framed(data)
     arr = dc.decompress_framed_to_device(stream, device=cuda_device)
@@ -148,6 +226,14 @@ def test_main_path_through_kernels(cuda_device, mode, monkeypatch, rng):
     assert kc.launches > crc0
     if mode == "classify":
         assert kf.launches > flat0
+    if mode == "seq":
+        assert kds.launches > seq0[0] and kes.launches > seq0[1]
+        broken = bytearray(stream)
+        chunks, _ = dc._scan_frames(stream)
+        _t, p_off, _l, _c, _d, hdr = next(c for c in chunks if c[0] == 0)
+        broken[p_off + hdr] = (3 << 2) | 2  # a copy before the block start
+        with pytest.raises(dc.CorruptError):
+            dc.decompress_framed_to_device(bytes(broken), device=cuda_device)
     bad = bytearray(stream)
     bad[14] ^= 0x01
     with pytest.raises(dc.ChecksumError):

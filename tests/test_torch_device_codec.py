@@ -1,7 +1,8 @@
 """The torch port's codec entry points against the JAX package with its
-flat engine forced, in both runtime modes ("id" and "classify"), on the
-same inputs.  Streams must be byte-identical, decoded bytes equal, and
-the same errors raised.  Tolerance: 0."""
+flat engine forced, in every runtime mode of the port ("id", "classify"
+and the device LZ engine "seq"), on the same inputs.  Streams must be
+byte-identical, decoded bytes equal, and the same errors raised.
+Tolerance: 0."""
 
 import os
 import subprocess
@@ -31,16 +32,25 @@ from snappy_tpu_torch.kernels.decode_flat import DIRECT_T
 from snappy_tpu_torch.runtime import device_codec as dc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODES = ("id", "classify")
+MODES = ("id", "classify", "seq")
 
 
 @pytest.fixture(params=MODES)
 def mode(request, monkeypatch):
     """Both packages in one runtime mode, the JAX one with its flat
-    engines forced on (off the TPU it would pick the jnp engines)."""
+    engines forced on (off the TPU it would pick the jnp engines).
+    "seq" sets only the port's device LZ engine (FLAT=0, HOST_PARSE=0)
+    and leaves the JAX package on its id engine: the JAX package's own
+    FLAT=0 encoder is the jnp one, whose emission differs, while the
+    port's is the reference encoder's, as the id engine's is."""
     monkeypatch.setattr(jdc, "_pallas_cache", True)
-    monkeypatch.setattr(jdc, "FLAT_MODE", request.param)
-    monkeypatch.setattr(dc, "FLAT_MODE", request.param)
+    if request.param == "seq":
+        monkeypatch.setattr(jdc, "FLAT_MODE", "id")
+        monkeypatch.setattr(dc, "FLAT", False)
+        monkeypatch.setattr(dc, "HOST_PARSE", False)
+    else:
+        monkeypatch.setattr(jdc, "FLAT_MODE", request.param)
+        monkeypatch.setattr(dc, "FLAT_MODE", request.param)
     return request.param
 
 
@@ -161,7 +171,7 @@ def test_corrupt_streams(mode, nprng):
 
 def test_corrupt_payload_byte_caught_by_crc(mode):
     """A flipped literal byte still decodes to the stated length: only
-    the chunk CRC (on the device in both modes) can tell."""
+    the chunk CRC (on the device in every mode) can tell."""
     data = bytes(range(256)) * 1024  # one 64 KiB chunk, compressed
     stream = bytearray(dc.compress_framed(data, device="cpu"))
     assert stream[10] == 0x00
@@ -176,6 +186,36 @@ def _frame_one_chunk(element_body: bytes, data: bytes) -> bytes:
     return (b"\xff\x06\x00\x00sNaPpY"
             + bytes((0x00, len(body) & 255, (len(body) >> 8) & 255,
                      len(body) >> 16)) + body)
+
+
+def test_broken_element_raises_corrupt(mode):
+    """A copy reaching before the block start fails the decode itself
+    (the native walk in the flat modes, the kernel's error code in the
+    device LZ engine), whatever the CRC says."""
+    data = b"abcdabcd"
+    framed = _frame_one_chunk(b"\x0cabcd" + bytes([(3 << 2) | 2, 9, 0]),
+                              data)
+    for dec in ("decompress_framed", "decompress_framed_to_device"):
+        _both_raise(CorruptError,
+                    lambda: getattr(dc, dec)(framed, device="cpu"),
+                    lambda: getattr(jdc, dec)(framed))
+
+
+def test_hybrid_engine_not_ported(monkeypatch, nprng):
+    """FLAT=0 with HOST_PARSE=1 is the JAX package's hybrid decode
+    engine: the port says so instead of running another engine.  Encode
+    ignores HOST_PARSE and raw decode stays on the host, as in JAX."""
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", True)
+    data = _samples(nprng)[-1]
+    stream = native.compress_framed(data)
+    for dec in (dc.decompress_framed, dc.decompress_framed_to_device):
+        with pytest.raises(SnappyError, match="not ported"):
+            dec(stream, device="cpu")
+    assert dc.compress_framed(data, device="cpu") == stream
+    raw = dc.compress(data, device="cpu")
+    assert raw == native.compress(data)
+    assert dc.decompress(raw, device="cpu") == data
 
 
 def _one_byte_literals(n: int):
@@ -302,6 +342,10 @@ def test_port_imports_no_jax():
         "t = st.decompress_framed_to_device(s, device='cpu')\n"
         "assert st.compress_framed_from_device(t) == s\n"
         "assert st.decompress(st.compress(d, device='cpu'), device='cpu') == d\n"
+        "from snappy_tpu_torch.runtime import device_codec as dc\n"
+        "dc.FLAT, dc.HOST_PARSE = False, False\n"
+        "assert st.decompress_framed(st.compress_framed(d, device='cpu'),\n"
+        "                            device='cpu') == d\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
