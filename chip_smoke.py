@@ -10,7 +10,9 @@ kernel bit for bit against its plain PyTorch version at the main path's
 shapes, drives the framed to-device / from-device path through the
 public entry points in each runtime engine (id: 256 MiB, classify:
 64 MiB, the device LZ engine "seq": 256 MiB of the seeded benchmark
-corpus) against the native codec, shows through the launch counters,
+corpus) against the native codec, drives the two standalone engines
+over 256 MiB of the same corpus (the wave-group decoder "wave" and the
+device match finder "devmatch"), shows through the launch counters,
 reset before each engine's run and read after it, that each run went
 through its kernels, and times each kernel against its plain version.
 Every check raises on failure (nothing is caught), so any failure exits
@@ -48,8 +50,16 @@ KERNELS = {
         "source": "snappy_tpu_torch/csrc/seq_encode.cu",
         "replaces": "snappy_tpu/kernels/pallas_encode.py:193",
     },
+    "wavegroup": {
+        "source": "snappy_tpu_torch/csrc/wavegroup.cu",
+        "replaces": "snappy_tpu/kernels/decode_wavegroup.py:178",
+    },
+    "match_cands": {
+        "source": "snappy_tpu_torch/csrc/match.cu",
+        "replaces": "snappy_tpu/kernels/pallas_match.py:125",
+    },
 }
-SEQ_ROWS = 64  # rows of the seq kernels' phases and timings (BATCH)
+SEQ_ROWS = 64  # rows of the seq, wave and match phases and timings (BATCH)
 
 
 def log(card: str, msg: str) -> None:
@@ -220,10 +230,12 @@ def _counters():
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import decode_wavegroup as kw
     from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import match as km
 
     return {"crc32c_rows": kc, "flat_exec": kf, "seq_decode": kds,
-            "seq_encode": kes}
+            "seq_encode": kes, "wavegroup": kw, "match_cands": km}
 
 
 def _bad_streams() -> list:
@@ -321,6 +333,73 @@ def seq_encode_phase(card, dev, data):
     return max_err, tuple(t[:SEQ_ROWS] for t in args)
 
 
+def wave_phase(card, dev, data):
+    """Phase 7: the wave-group kernel against its plain version and the
+    input bytes: SEQ_ROWS corpus chunks as native.compress emits them,
+    planned natively (stage_waves), plus edge rows (zeros, run-length,
+    random, empty)."""
+    from snappy_tpu import native
+    from snappy_tpu_torch.kernels import decode_wavegroup as kw
+
+    rng = np.random.default_rng(12)
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
+    blocks += [bytes(65536), b"ab" * 32768, rng.bytes(65536), b""]
+    staged = kw.stage_waves([native.compress(b) for b in blocks], device=dev)
+    assert staged is not None, "a wave plan over WAVE_G_CAP"
+    out = kw.decode_blocks_wavegroup(*staged, 65536)
+    plain = kw.decode_blocks_wavegroup_plain(*staged, 65536)
+    torch.cuda.synchronize()
+    max_err = int((out.to(torch.int16) - plain.to(torch.int16)).abs().max())
+    assert torch.equal(out, plain), "wavegroup kernel != plain"
+    out_h = out.cpu().numpy()
+    for i, b in enumerate(blocks):
+        assert out_h[i, : len(b)].tobytes() == b, i
+        assert not out_h[i, len(b) :].any(), i
+    ng = staged[2].cpu().numpy()
+    log(card, f"wavegroup: {SEQ_ROWS} corpus rows ({int(ng[:SEQ_ROWS].min())}"
+              f"-{int(ng[:SEQ_ROWS].max())} groups) and "
+              f"{len(blocks) - SEQ_ROWS} edge rows ({ng[SEQ_ROWS:].tolist()} "
+              f"groups) byte-identical to plain and to the input "
+              f"(max_abs_err {max_err})")
+    return max_err, tuple(t[:SEQ_ROWS] for t in staged)
+
+
+def match_phase(card, dev, data):
+    """Phase 8: the match kernel against its plain version in both
+    routes (home and sorted pairs), SEQ_ROWS corpus chunks plus edge
+    blocks (empty, 3 B, 4 B, zeros, random, and exact 64 KiB blocks,
+    whose last v-words wrap round), some rows against
+    match_np.find_candidates."""
+    from snappy_tpu.kernels import match_np
+    from snappy_tpu_torch.kernels import match as km
+
+    rng = np.random.default_rng(13)
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
+    blocks += [b"", b"abc", b"abcd", bytes(65536), rng.bytes(65536),
+               bytes(range(256)) * 256, rng.bytes(40000)]
+    w, n = km.stage_words(blocks)
+    args = (torch.from_numpy(w).to(dev), torch.from_numpy(n).to(dev))
+    max_err = 0
+    for home in (True, False):
+        got = km.find_candidates(*args, home=home)
+        plain = km.find_candidates_plain(*args, home=home)
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((got.long() - plain.long()).abs().max()))
+        assert torch.equal(got, plain), f"match kernel != plain (home={home})"
+        cands = got.cpu().numpy()
+        if not home:
+            cands = km.scatter_home(cands)
+        cands = cands.reshape(len(blocks), -1)
+        for i in [0, SEQ_ROWS - 1] + list(range(SEQ_ROWS, len(blocks))):
+            assert np.array_equal(cands[i], match_np.find_candidates(
+                blocks[i])), f"match row {i} != match_np (home={home})"
+    log(card, f"match_cands: {SEQ_ROWS} corpus rows and "
+              f"{len(blocks) - SEQ_ROWS} edge rows bit-exact to plain in both "
+              f"routes, {len(blocks) - SEQ_ROWS + 2} rows to "
+              f"match_np.find_candidates (max_abs_err {max_err})")
+    return max_err, tuple(t[:SEQ_ROWS] for t in args)
+
+
 def break_element(fr: bytes) -> bytes:
     """fr with the first element of its first compressed chunk made a
     copy that reaches before the block start."""
@@ -366,13 +445,19 @@ def expect_raise(exc, fn, what: str) -> None:
     raise AssertionError(f"{what} not caught")
 
 
-def main_path(card, dev, id_mib, classify_mib, seq_mib, seed):
-    """Phases 7-9 through the public entry points, one engine at a time
+def main_path(card, dev, id_mib, classify_mib, seq_mib, wave_mib,
+              devmatch_mib, seed):
+    """Phases 9-13 through the public entry points, one engine at a time
     with the launch counters set to 0 just before its run and read just
     after.  Returns the rates and each engine's launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import snappy_tpu_torch as st
     from snappy_tpu import native
     from snappy_tpu.spec import framing
+    from snappy_tpu.spec.format import put_uvarint
+    from snappy_tpu_torch.kernels import decode_wavegroup as kw
+    from snappy_tpu_torch.kernels import match as km
     from snappy_tpu_torch.runtime import device_codec as dc
 
     mods = _counters()
@@ -397,10 +482,18 @@ def main_path(card, dev, id_mib, classify_mib, seq_mib, seed):
         log(card, f"{name} run: kernel launches {counts}")
         return counts
 
-    full = corpus_bytes(max(id_mib, seq_mib) << 20, seed)
+    full = corpus_bytes(max(id_mib, seq_mib, wave_mib, devmatch_mib) << 20,
+                        seed)
+    # the standalone engines' 64 KiB blocks (the corpus may end a few
+    # bytes short of its size) and their native.compress streams (the
+    # wave engine's input; the devmatch size reference)
+    blocks = [full[i << 16 : (i + 1) << 16]
+              for i in range(max(wave_mib, devmatch_mib) << 4)]
+    with ThreadPoolExecutor(4) as pool:
+        streams = list(pool.map(native.compress, blocks))
 
     def id_engine():
-        # phase 7: id mode at a real loader size
+        # phase 9: id mode at a real loader size
         data = full[: id_mib << 20]
         n = len(data)
         ref = run("host native.compress_framed", n,
@@ -435,7 +528,7 @@ def main_path(card, dev, id_mib, classify_mib, seq_mib, seed):
             st.compress_framed(small, device=dev)) == small, "spec oracle"
 
     def classify_engine():
-        # phase 8: classify mode
+        # phase 10: classify mode
         dc.FLAT_MODE = "classify"
         data = full[: classify_mib << 20]
         n = len(data)
@@ -453,7 +546,7 @@ def main_path(card, dev, id_mib, classify_mib, seq_mib, seed):
         dc.FLAT_MODE = "id"
 
     def seq_engine():
-        # phase 9: the device LZ engine (SNAPPY_TPU_FLAT=0,
+        # phase 11: the device LZ engine (SNAPPY_TPU_FLAT=0,
         # SNAPPY_TPU_HOST_PARSE=0): the card decodes and encodes
         dc.FLAT, dc.HOST_PARSE = False, False
         data = full[: seq_mib << 20]
@@ -490,25 +583,134 @@ def main_path(card, dev, id_mib, classify_mib, seq_mib, seed):
                   "element raised CorruptError")
         dc.FLAT, dc.HOST_PARSE = True, True
 
+    # per standalone engine: bytes, staging and whole-call seconds, and
+    # its launches' arguments, replayed back to back once the run's
+    # counts are read (events around launches inside the run would add
+    # the host's gaps: the launching thread shares the GIL with the
+    # staging or emitting threads)
+    replays = {}
+
+    def wave_engine():
+        # phase 12: the wave-group decoder: every block's native.compress
+        # stream parsed and planned on the host (stage_waves, 4 threads),
+        # the plans run on the card in launches of SEQ_ROWS rows
+        nblk = wave_mib << 4
+        n = sum(len(b) for b in blocks[:nblk])
+        ref = torch.zeros(nblk << 16, dtype=torch.uint8)
+        ref[:n] = torch.frombuffer(bytearray(full[:n]), dtype=torch.uint8)
+        ref = ref.to(dev).view(nblk, 65536)
+
+        def stage(lo):
+            t0 = time.perf_counter()
+            staged = kw.stage_waves(streams[lo : lo + SEQ_ROWS])
+            return staged, time.perf_counter() - t0
+
+        outs, groups, launched, stage_s = [], [], [], 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            for staged, secs in pool.map(stage, range(0, nblk, SEQ_ROWS)):
+                assert staged is not None, "a wave plan over WAVE_G_CAP"
+                stage_s += secs
+                args = tuple(t.to(dev) for t in staged)
+                outs.append(kw.decode_blocks_wavegroup(*args, 65536))
+                launched.append(args)
+                groups.append(staged[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        replays["wave"] = (n, stage_s, wall, [
+            lambda a=a: kw.decode_blocks_wavegroup(*a, 65536)
+            for a in launched])
+        assert torch.equal(torch.cat(outs), ref), "wave decode != input"
+        ng = torch.cat(groups)
+        log(card, f"wave: {nblk} blocks byte-identical to the input, 0 plans "
+                  f"over the cap of {kw.WAVE_G_CAP}, {int(ng.min())}-"
+                  f"{int(ng.max())} groups per block (mean "
+                  f"{float(ng.float().mean()):.1f})")
+
+    def devmatch_engine():
+        # phase 13: the device match finder: stage_words, the kernel
+        # (home route), D2H, then native.emit_from_cands in 4 threads
+        nblk = devmatch_mib << 4
+        n = sum(len(b) for b in blocks[:nblk])
+
+        def emit(lo, cands):
+            return [native.emit_from_cands(blocks[lo + i], cands[i])
+                    for i in range(len(cands))]
+
+        bodies, launched, stage_s = [], [], 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(4) as pool:
+            futs = []
+            for lo in range(0, nblk, SEQ_ROWS):
+                t1 = time.perf_counter()
+                w, npos = km.stage_words(blocks[lo : lo + SEQ_ROWS])
+                stage_s += time.perf_counter() - t1
+                args = tuple(torch.from_numpy(a).to(dev) for a in (w, npos))
+                cands = km.find_candidates(*args)
+                launched.append(args)
+                futs.append(pool.submit(
+                    emit, lo, cands.cpu().numpy().reshape(len(w), -1)))
+            for f in futs:
+                bodies += f.result()
+        wall = time.perf_counter() - t0
+        replays["devmatch"] = (n, stage_s, wall, [
+            lambda a=a: km.find_candidates(*a) for a in launched])
+
+        def check(i):
+            blk = blocks[i]
+            return native.decompress(put_uvarint(len(blk)) + bodies[i]) == blk
+
+        with ThreadPoolExecutor(4) as pool:
+            assert all(pool.map(check, range(nblk))), "devmatch emission"
+        emitted = sum(len(b) for b in bodies)
+        ref = sum(len(s) - len(put_uvarint(len(b)))
+                  for s, b in zip(streams[:nblk], blocks))
+        log(card, f"devmatch: {nblk} emissions decode to their blocks; "
+                  f"emitted {emitted} B against {ref} B of native.compress "
+                  f"bodies ({(emitted - ref) / ref * 100:+.3f}%)")
+
     counts = {"id": engine_run("id", id_engine),
               "classify": engine_run("classify", classify_engine),
-              "seq": engine_run("seq", seq_engine)}
+              "seq": engine_run("seq", seq_engine),
+              "wave": engine_run("wave", wave_engine),
+              "devmatch": engine_run("devmatch", devmatch_engine)}
     for eng, kernels in (("id", ["crc32c_rows"]), ("classify", ["flat_exec"]),
-                         ("seq", ["seq_decode", "seq_encode", "crc32c_rows"])):
+                         ("seq", ["seq_decode", "seq_encode", "crc32c_rows"]),
+                         ("wave", ["wavegroup"]),
+                         ("devmatch", ["match_cands"])):
         for name in kernels:
             assert counts[eng][name] > 0, f"{name} never launched in {eng}"
+    for name, (n, stage_s, wall, launches) in replays.items():
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for launch in launches:
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        kern_s = start.elapsed_time(end) / 1e3
+        rates[f"{name}.kernel"] = n / kern_s / 1e9
+        rates[f"{name}.call"] = n / wall / 1e9
+        log(card, f"{name}: {n} B; staging {stage_s:.4f} s (sum over "
+                  f"threads); its {len(launches)} launches replayed back to "
+                  f"back {kern_s:.4f} s = {rates[f'{name}.kernel']:.3f} GB/s "
+                  f"kernel-only; whole call {wall:.4f} s = "
+                  f"{rates[f'{name}.call']:.3f} GB/s")
     return rates, counts
 
 
-def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc):
-    """Phase 10: each kernel against its plain version at the main
-    path's shapes (BATCH rows; SEQ_ROWS corpus rows for the sequential
-    kernels, whose plain versions are serial walks), alternating plain,
-    kernel, kernel, plain."""
+def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave, match):
+    """Phase 14: each kernel against its plain version at the main
+    path's shapes (BATCH rows; SEQ_ROWS corpus rows for the sequential,
+    wave and match kernels), alternating plain, kernel, kernel, plain."""
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import decode_wavegroup as kw
     from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import match as km
     from snappy_tpu_torch.runtime import device_codec as dc
 
     rng = np.random.default_rng(7)
@@ -531,6 +733,12 @@ def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc):
         "seq_encode": (lambda: kes.encode_blocks_seq(*seq_enc),
                        lambda: kes.encode_blocks_seq_plain(*seq_enc),
                        20, 1, seq_enc[0].shape[0]),
+        "wavegroup": (lambda: kw.decode_blocks_wavegroup(*wave, 65536),
+                      lambda: kw.decode_blocks_wavegroup_plain(*wave, 65536),
+                      50, 2, wave[0].shape[0]),
+        "match_cands": (lambda: km.find_candidates(*match),
+                        lambda: km.find_candidates_plain(*match),
+                        50, 5, match[0].shape[0]),
     }
     for name, (kern, plain, k_iters, p_iters, nrows) in runs.items():
         # a serial walk's single call needs no warm-up (seconds each)
@@ -553,6 +761,8 @@ def main() -> int:
     ap.add_argument("--id-mib", type=int, default=256)
     ap.add_argument("--classify-mib", type=int, default=64)
     ap.add_argument("--seq-mib", type=int, default=256)
+    ap.add_argument("--wave-mib", type=int, default=256)
+    ap.add_argument("--devmatch-mib", type=int, default=256)
     ap.add_argument("--seed", type=int, default=20260816)
     args = ap.parse_args()
 
@@ -587,19 +797,25 @@ def main() -> int:
     flat_err, plan, eplan = flat_phase(card, dev, flat_data)
     seq_dec_err, seq_dec = seq_decode_phase(card, dev, flat_data)
     seq_enc_err, seq_enc = seq_encode_phase(card, dev, flat_data[1 << 23 :])
+    wave_err, wave = wave_phase(card, dev, flat_data[1 << 22 :])
+    match_err, match = match_phase(card, dev, flat_data[3 << 22 :])
 
     for k in dc.HOST_FALLBACKS:
         dc.HOST_FALLBACKS[k] = 0
     rates, counts = main_path(card, dev, args.id_mib, args.classify_mib,
-                              args.seq_mib, args.seed)
+                              args.seq_mib, args.wave_mib, args.devmatch_mib,
+                              args.seed)
     launches = {name: sum(c[name] for c in counts.values())
                 for name in KERNELS}
-    log(card, f"launches on the main path (id + classify + seq runs): "
-              f"{launches}; host fallbacks: {dict(dc.HOST_FALLBACKS)}")
+    log(card, f"launches on the main path (id + classify + seq + wave + "
+              f"devmatch runs): {launches}; host fallbacks: "
+              f"{dict(dc.HOST_FALLBACKS)}")
 
-    times = kernel_times(card, dev, plan, eplan, seq_dec, seq_enc)
+    times = kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave,
+                         match)
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
-            "seq_decode": seq_dec_err, "seq_encode": seq_enc_err}
+            "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
+            "wavegroup": wave_err, "match_cands": match_err}
     table = {"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],

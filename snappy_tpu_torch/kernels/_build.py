@@ -127,6 +127,10 @@ def _declare(lib) -> None:
     lib.snc_seq_decode.argtypes = [p, i64, i32, p, p, p, p, i32, p, i32, p]
     lib.snc_seq_encode.restype = ctypes.c_int
     lib.snc_seq_encode.argtypes = [p, i64, i32, p, p, i32, p, p, i32, p]
+    lib.snc_wavegroup.restype = ctypes.c_int
+    lib.snc_wavegroup.argtypes = [p, i64, i32, p, i32, p, p, i32, i32, p]
+    lib.snc_match_cands.restype = ctypes.c_int
+    lib.snc_match_cands.argtypes = [p, p, i32, i32, p, p, i32, p]
     lib.snc_error_string.restype = ctypes.c_char_p
     lib.snc_error_string.argtypes = [ctypes.c_int]
 

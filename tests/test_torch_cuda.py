@@ -14,12 +14,15 @@ import torch
 
 from snappy_tpu import native
 from snappy_tpu.bench.corpus import make_corpus
+from snappy_tpu.kernels import match_np
 from snappy_tpu_torch.kernels import crc32c as kc
 from snappy_tpu.spec.format import put_uvarint, read_uvarint
 from snappy_tpu_torch.kernels import decode_flat as kf
 from snappy_tpu_torch.kernels import decode_seq as kds
+from snappy_tpu_torch.kernels import decode_wavegroup as kw
 from snappy_tpu_torch.kernels import encode_flat as ke
 from snappy_tpu_torch.kernels import encode_seq as kes
+from snappy_tpu_torch.kernels import match as km
 from snappy_tpu_torch.runtime import device_codec as dc
 
 pytestmark = pytest.mark.cuda
@@ -238,3 +241,113 @@ def test_main_path_through_kernels(cuda_device, mode, monkeypatch, rng):
     bad[14] ^= 0x01
     with pytest.raises(dc.ChecksumError):
         dc.decompress_framed_to_device(bytes(bad), device=cuda_device)
+
+
+def _blocks(data):
+    return [data[i << 16 : (i + 1) << 16] for i in range(len(data) >> 16)]
+
+
+@pytest.mark.parametrize("cmax,out_max", [(None, 65536), (100_003, 99_999)])
+def test_wavegroup_kernel_matches_plain(cuda_device, rng, cmax, out_max):
+    """Corpus and edge rows; shared-memory rows and rows too wide for it
+    (device-memory path) read through a row-strided view."""
+    blocks = _blocks(_corpus(20, 16 << 16))
+    blocks += [bytes(65536), b"ab" * 32768, rng.bytes(65536), b"", b"x"]
+    comp, words, ng = kw.stage_waves([native.compress(b) for b in blocks],
+                                     device=cuda_device)
+    if cmax is not None:
+        wide = torch.zeros(len(blocks), cmax + 7, dtype=torch.uint8,
+                           device=cuda_device)
+        wide[:, : comp.shape[1]] = comp
+        comp = wide[:, :cmax]
+    before = kw.launches
+    out = kw.decode_blocks_wavegroup(comp, words, ng, out_max)
+    torch.cuda.synchronize()
+    assert kw.launches == before + 1
+    assert torch.equal(out, kw.decode_blocks_wavegroup_plain(comp, words, ng,
+                                                             out_max))
+    out_h = out.cpu().numpy()
+    for i, b in enumerate(blocks):
+        assert out_h[i, : len(b)].tobytes() == b
+        assert not out_h[i, len(b) :].any()
+
+
+def test_wavegroup_kernel_stays_in_its_rows(cuda_device, rng):
+    """Random words break every invariant, and ngroups run past the plan
+    and below 0: the kernel still runs to its end without a memory
+    fault, and rows with no group to run stay zero."""
+    comp = torch.from_numpy(rng.integers(0, 256, (6, 3000), dtype=np.uint8))
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (6, 4, 128),
+                                          dtype=np.int64).astype(np.int32))
+    ng = torch.tensor([0, 1, 32, 33, -5, 2**30], dtype=torch.int32)
+    out = kw.decode_blocks_wavegroup(comp.to(cuda_device),
+                                     words.to(cuda_device),
+                                     ng.to(cuda_device), 1000)
+    torch.cuda.synchronize()
+    assert out.shape == (6, 1000)
+    assert not out[0].any() and not out[4].any()  # no groups run
+
+
+@pytest.mark.parametrize("home", [True, False])
+def test_match_kernel_matches_plain(cuda_device, rng, home):
+    blocks = _blocks(_corpus(21, 16 << 16))
+    blocks += [b"", b"abc", b"abcd", bytes(65536), rng.bytes(65536),
+               bytes(range(256)) * 256, rng.bytes(30001)]
+    w, n = km.stage_words(blocks)
+    w_d, n_d = torch.from_numpy(w).to(cuda_device), torch.from_numpy(n).to(
+        cuda_device)
+    before = km.launches
+    got = km.find_candidates(w_d, n_d, home=home)
+    torch.cuda.synchronize()
+    assert km.launches == before + 1
+    assert torch.equal(got, km.find_candidates_plain(w_d, n_d, home=home))
+    cands = got.cpu().numpy()
+    if not home:
+        cands = km.scatter_home(cands)
+    cands = cands.reshape(len(blocks), -1)
+    for i in (0, 15, *range(16, len(blocks))):
+        assert np.array_equal(cands[i], match_np.find_candidates(blocks[i])), i
+    # 4,096 slots: a block filling them exactly (the v-word wrap)
+    small = [rng.bytes(4096), (b"wrap" * 1024), b"abcabcabc"]
+    w, n = km.stage_words(small, 4096)
+    w_d, n_d = torch.from_numpy(w).to(cuda_device), torch.from_numpy(n).to(
+        cuda_device)
+    assert torch.equal(km.find_candidates(w_d, n_d, home=home),
+                       km.find_candidates_plain(w_d, n_d, home=home))
+
+
+def test_wave_engine(cuda_device):
+    """The wave engine of chip_smoke.py at 2 MiB: native.compress
+    streams, stage_waves, launches of 8 rows, compared on the device."""
+    data = _corpus(22)
+    blocks = _blocks(data)
+    streams = [native.compress(b) for b in blocks]
+    ref = torch.frombuffer(bytearray(data[: len(blocks) << 16]),
+                           dtype=torch.uint8).to(cuda_device).view(-1, 65536)
+    before = kw.launches
+    for lo in range(0, len(blocks), 8):
+        staged = kw.stage_waves(streams[lo : lo + 8])
+        assert staged is not None
+        out = kw.decode_blocks_wavegroup(
+            *(t.to(cuda_device) for t in staged), 65536)
+        assert torch.equal(out, ref[lo : lo + 8])
+    assert kw.launches == before + (len(blocks) + 7) // 8
+
+
+def test_devmatch_engine(cuda_device):
+    """The devmatch engine of chip_smoke.py at 2 MiB: candidates on the
+    card, emission on the host, every emission decoding to its block,
+    and the total smaller than the native encoder's bodies."""
+    blocks = _blocks(_corpus(23))
+    before = km.launches
+    emitted = ref = 0
+    for lo in range(0, len(blocks), 8):
+        batch = blocks[lo : lo + 8]
+        cands = km.find_candidates_device(batch, device=cuda_device)
+        for blk, c in zip(batch, cands):
+            body = native.emit_from_cands(blk, np.ascontiguousarray(c))
+            assert native.decompress(put_uvarint(len(blk)) + body) == blk
+            emitted += len(body)
+            ref += len(native.compress(blk)) - len(put_uvarint(len(blk)))
+    assert km.launches == before + (len(blocks) + 7) // 8
+    assert emitted < ref
