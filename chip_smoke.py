@@ -14,7 +14,11 @@ corpus) against the native codec, drives the two standalone engines
 over 256 MiB of the same corpus (the wave-group decoder "wave" and the
 device match finder "devmatch"), shows through the launch counters,
 reset before each engine's run and read after it, that each run went
-through its kernels, and times each kernel against its plain version.
+through its kernels, times each kernel against its plain version, then
+saves and loads a state dict with GPT-2 medium's tensor shapes through
+the checkpoint API (id and seq engines; phase 15) and drives the
+streaming reader and writer and the CLI over 256 MiB of the corpus
+(phase 16).
 Every check raises on failure (nothing is caught), so any failure exits
 non-zero; without a GPU it exits non-zero before printing any result.
 
@@ -445,11 +449,25 @@ def expect_raise(exc, fn, what: str) -> None:
     raise AssertionError(f"{what} not caught")
 
 
-def main_path(card, dev, id_mib, classify_mib, seq_mib, wave_mib,
-              devmatch_mib, seed):
+def counted(card, name: str, fn):
+    """Run fn() on the host clock (ending in a sync) with every launch
+    counter set to 0 just before and read just after; returns (result,
+    seconds, counts)."""
+    mods = _counters()
+    for m in mods.values():
+        m.launches = 0
+    res, secs = timed(fn)
+    counts = {k: m.launches for k, m in mods.items()}
+    log(card, f"{name}: {secs:.4f} s, kernel launches {counts}")
+    return res, secs, counts
+
+
+def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
+              devmatch_mib):
     """Phases 9-13 through the public entry points, one engine at a time
     with the launch counters set to 0 just before its run and read just
-    after.  Returns the rates and each engine's launch counts."""
+    after, on the corpus ``full``.  Returns the rates and each engine's
+    launch counts."""
     from concurrent.futures import ThreadPoolExecutor
 
     import snappy_tpu_torch as st
@@ -474,16 +492,6 @@ def main_path(card, dev, id_mib, classify_mib, seq_mib, wave_mib,
                   f"{rates[name]:.3f} GB/s (launches: {made})")
         return res
 
-    def engine_run(name, fn):
-        for m in mods.values():
-            m.launches = 0
-        fn()
-        counts = {k: m.launches for k, m in mods.items()}
-        log(card, f"{name} run: kernel launches {counts}")
-        return counts
-
-    full = corpus_bytes(max(id_mib, seq_mib, wave_mib, devmatch_mib) << 20,
-                        seed)
     # the standalone engines' 64 KiB blocks (the corpus may end a few
     # bytes short of its size) and their native.compress streams (the
     # wave engine's input; the devmatch size reference)
@@ -671,11 +679,10 @@ def main_path(card, dev, id_mib, classify_mib, seq_mib, wave_mib,
                   f"emitted {emitted} B against {ref} B of native.compress "
                   f"bodies ({(emitted - ref) / ref * 100:+.3f}%)")
 
-    counts = {"id": engine_run("id", id_engine),
-              "classify": engine_run("classify", classify_engine),
-              "seq": engine_run("seq", seq_engine),
-              "wave": engine_run("wave", wave_engine),
-              "devmatch": engine_run("devmatch", devmatch_engine)}
+    counts = {name: counted(card, f"{name} run", fn)[2] for name, fn in (
+        ("id", id_engine), ("classify", classify_engine),
+        ("seq", seq_engine), ("wave", wave_engine),
+        ("devmatch", devmatch_engine))}
     for eng, kernels in (("id", ["crc32c_rows"]), ("classify", ["flat_exec"]),
                          ("seq", ["seq_decode", "seq_encode", "crc32c_rows"]),
                          ("wave", ["wavegroup"]),
@@ -756,6 +763,296 @@ def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave, match):
     return out
 
 
+# published gpt2-medium (Radford et al. 2019, Table 2; the Hugging Face
+# gpt2-medium model card): 24 layers, d_model 1,024, 16 heads, vocab
+# 50,257, context 1,024
+GPT2_MEDIUM = {"n_layer": 24, "d_model": 1024, "n_head": 16,
+               "vocab": 50257, "n_ctx": 1024}
+
+
+def gpt2_state(n_layer: int, dev, seed: int) -> dict:
+    """A state dict with GPT-2 medium's tensor shapes and names at
+    ``n_layer`` layers, values as at initialisation: weights normal(0,
+    0.02) from a seeded generator on the card, LayerNorm weights ones,
+    biases zeros."""
+    d, vocab, ctx = (GPT2_MEDIUM[k] for k in ("d_model", "vocab", "n_ctx"))
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def w(*shape):
+        return torch.empty(shape, device=dev).normal_(0.0, 0.02, generator=g)
+
+    def ones(n):
+        return torch.ones(n, device=dev)
+
+    def zeros(n):
+        return torch.zeros(n, device=dev)
+
+    state = {"wte.weight": w(vocab, d), "wpe.weight": w(ctx, d),
+             "ln_f.weight": ones(d), "ln_f.bias": zeros(d)}
+    for i in range(n_layer):
+        p = f"h.{i}."
+        state.update({
+            p + "ln_1.weight": ones(d), p + "ln_1.bias": zeros(d),
+            p + "attn.c_attn.weight": w(d, 3 * d),
+            p + "attn.c_attn.bias": zeros(3 * d),
+            p + "attn.c_proj.weight": w(d, d), p + "attn.c_proj.bias": zeros(d),
+            p + "ln_2.weight": ones(d), p + "ln_2.bias": zeros(d),
+            p + "mlp.c_fc.weight": w(d, 4 * d), p + "mlp.c_fc.bias": zeros(4 * d),
+            p + "mlp.c_proj.weight": w(4 * d, d),
+            p + "mlp.c_proj.bias": zeros(d),
+        })
+    return state
+
+
+def _tensor_bytes(t: torch.Tensor) -> bytes:
+    return t.reshape(-1).view(torch.uint8).cpu().numpy().tobytes()
+
+
+def checkpoint_phase(card, dev, layers: int, seed: int):
+    """Phase 15: save_pytree -> load_pytree of a GPT-2-medium-shaped
+    state through the public checkpoint API, in the id engine and in the
+    device LZ engine, each run counted.  Returns the rates and the runs'
+    launch counts."""
+    from snappy_tpu import native
+    from snappy_tpu.errors import ChecksumError, CorruptError
+    from snappy_tpu_torch import checkpoint as ck
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    state = gpt2_state(layers, dev, seed)
+    nbytes = sum(t.numel() * t.element_size() for t in state.values())
+    mats = sorted(k for k, t in state.items() if t.dim() == 2)
+    vecs = sorted(k for k, t in state.items() if t.dim() == 1)
+    log(card, f"phase 15: GPT-2 medium state ({GPT2_MEDIUM}, {layers} "
+              f"layers): {len(state)} tensors ({len(mats)} matrices, "
+              f"{len(vecs)} vectors), "
+              f"{sum(t.numel() for t in state.values())} float32 "
+              f"parameters = {nbytes} B")
+    rates, counts = {}, {}
+
+    blob, secs, counts["ckpt.id.save"] = counted(
+        card, "checkpoint id save_pytree", lambda: ck.save_pytree(state))
+    rates["ckpt.id.save"] = nbytes / secs / 1e9
+    back, secs, counts["ckpt.id.load"] = counted(
+        card, "checkpoint id load_pytree(to_device=True)",
+        lambda: ck.load_pytree(blob))
+    rates["ckpt.id.load"] = nbytes / secs / 1e9
+    for run in ("ckpt.id.save", "ckpt.id.load"):
+        assert counts[run]["crc32c_rows"] > 0, f"crc32c_rows never in {run}"
+    assert sorted(back) == sorted(state)
+    for k, t in state.items():
+        assert back[k].device == dev and back[k].dtype == t.dtype
+        assert torch.equal(back[k], t), f"checkpoint round trip: {k}"
+    del back
+    entries = ck.container_entries(blob)
+    stored = total = 0
+    for name, lo, hi in entries:
+        entry = blob[lo:hi]
+        n = int.from_bytes(entry[11:14], "little")
+        want = native.compress_framed(_tensor_bytes(state[name]), threads=4)
+        assert entry[:10] + entry[14 + n:] == want, f"stream of {name}"
+        chunks, _ = dc._scan_frames(want)
+        stored += sum(c[0] == 1 for c in chunks)
+        total += len(chunks)
+    log(card, f"checkpoint id: {len(state)} tensors bit-exact after "
+              f"save_pytree -> load_pytree on the card; container "
+              f"{len(blob)} B; every stream after its manifest equals "
+              f"native.compress_framed ({stored} of {total} chunks stored "
+              f"uncompressed); save {rates['ckpt.id.save']:.3f} GB/s, load "
+              f"{rates['ckpt.id.load']:.3f} GB/s")
+
+    # the split: each tensor on its own, matrices against vectors
+    split = {}
+    for cls, names in (("matrices", mats), ("vectors", vecs)):
+        nb = sum(state[k].numel() * 4 for k in names)
+        save_s = load_s = 0.0
+        for k in names:
+            one, secs = timed(lambda k=k: ck.save_array(state[k]))
+            save_s += secs
+            got, secs = timed(lambda one=one: ck.load_array(one))
+            load_s += secs
+            assert torch.equal(got, state[k]), k
+        split[cls] = (nb, save_s, load_s)
+        rates[f"ckpt.id.save.{cls}"] = nb / save_s / 1e9
+        rates[f"ckpt.id.load.{cls}"] = nb / load_s / 1e9
+        log(card, f"checkpoint id, {len(names)} {cls} one call each "
+                  f"({min(state[k].numel() * 4 for k in names)}-"
+                  f"{max(state[k].numel() * 4 for k in names)} B): {nb} B, "
+                  f"save {save_s:.4f} s = "
+                  f"{rates[f'ckpt.id.save.{cls}']:.3f} GB/s "
+                  f"({save_s / len(names) * 1e3:.3f} ms a call), load "
+                  f"{load_s:.4f} s = {rates[f'ckpt.id.load.{cls}']:.3f} "
+                  f"GB/s ({load_s / len(names) * 1e3:.3f} ms a call)")
+
+    # a flipped payload byte and a truncated container
+    name, lo, hi = next(e for e in entries if e[0] == mats[0])
+    bad = bytearray(blob)
+    bad[lo:hi] = flip_payload_byte(blob[lo:hi])
+    expect_raise(ChecksumError, lambda: ck.load_pytree(bytes(bad)),
+                 f"checkpoint: flipped payload byte in {name}")
+    del bad
+    for cut in (10, len(blob) // 2, len(blob) - 1):
+        expect_raise(CorruptError, lambda: ck.load_pytree(blob[:cut]),
+                     f"checkpoint: container cut at {cut}")
+    log(card, f"checkpoint: flipped payload byte in {name} raised "
+              f"ChecksumError; containers cut at 10, half and all but one "
+              f"byte raised CorruptError")
+
+    # the device LZ engine (SNAPPY_TPU_FLAT=0 SNAPPY_TPU_HOST_PARSE=0)
+    dc.FLAT, dc.HOST_PARSE = False, False
+    blob2, secs, counts["ckpt.seq.save"] = counted(
+        card, "checkpoint seq save_pytree", lambda: ck.save_pytree(state))
+    rates["ckpt.seq.save"] = nbytes / secs / 1e9
+    by_name = {n: (lo, hi) for n, lo, hi in entries}
+    for n, lo, hi in ck.container_entries(blob2):
+        ilo, ihi = by_name[n]
+        assert blob2[lo:hi] == blob[ilo:ihi], f"seq stream of {n} != id"
+    back, secs, counts["ckpt.seq.load"] = counted(
+        card, "checkpoint seq load_pytree(to_device=True)",
+        lambda: ck.load_pytree(blob2))
+    rates["ckpt.seq.load"] = nbytes / secs / 1e9
+    assert sorted(back) == sorted(state)
+    for k, t in state.items():
+        assert torch.equal(back[k], t), f"seq checkpoint round trip: {k}"
+    assert counts["ckpt.seq.save"]["seq_encode"] > 0, "seq_encode in save"
+    assert counts["ckpt.seq.load"]["seq_decode"] > 0, "seq_decode in load"
+    dc.FLAT, dc.HOST_PARSE = True, True
+    log(card, f"checkpoint seq: {len(state)} tensors bit-exact, streams equal "
+              f"to the id engine's; save {rates['ckpt.seq.save']:.3f} GB/s, "
+              f"load {rates['ckpt.seq.load']:.3f} GB/s")
+    lo, hi = by_name["wpe.weight"]
+    return rates, counts, blob[lo:hi]
+
+
+# ``python -m snappy_tpu_torch <args>`` run in a child interpreter that
+# then prints, as the last line of its stderr, the device the CLI's
+# default pick resolves to and every kernel's launch count
+_CLI_CHILD = """
+import importlib, json, runpy, sys
+from snappy_tpu_torch import device
+mods = {k: importlib.import_module(m) for k, m in %r.items()}
+rc = 0
+try:
+    runpy.run_module("snappy_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    rc = e.code or 0
+print(json.dumps({"device": str(device.resolve()),
+                  "launches": {k: m.launches for k, m in mods.items()}}),
+      file=sys.stderr, flush=True)
+sys.exit(rc)
+"""
+
+
+def stream_phase(card, dev, data: bytes, info_blob: bytes):
+    """Phase 16: the 256 MiB corpus through FramedWriter / FramedReader
+    (backend "torch", 1 MiB writes and reads) and through the CLI
+    (``python -m snappy_tpu_torch``, streamed above its threshold), each
+    against native.compress_framed; verify on a corrupted file and info
+    on a phase-15 blob.  Returns the rates and the runs' launch counts."""
+    import io
+    import os
+    import tempfile
+
+    from snappy_tpu import native
+    from snappy_tpu.errors import ChecksumError, exit_code_for
+    from snappy_tpu_torch import FramedReader, FramedWriter
+
+    n = len(data)
+    mib = 1 << 20
+    ref = native.compress_framed(data, threads=4)
+    rates, counts = {}, {}
+
+    def write():
+        sink = io.BytesIO()
+        with FramedWriter(sink, backend="torch") as w:
+            for i in range(0, n, mib):
+                w.write(data[i : i + mib])
+        return sink.getvalue()
+
+    fr, secs, counts["stream.write"] = counted(
+        card, "FramedWriter(backend='torch'), 1 MiB writes", write)
+    rates["stream.write"] = n / secs / 1e9
+    assert fr == ref, "FramedWriter != native.compress_framed"
+    assert counts["stream.write"]["crc32c_rows"] > 0
+
+    def read():
+        r = FramedReader(io.BytesIO(fr), backend="torch")
+        out = bytearray()
+        while piece := r.read(mib):
+            out += piece
+        return bytes(out)
+
+    got, secs, counts["stream.read"] = counted(
+        card, "FramedReader(backend='torch'), 1 MiB reads", read)
+    rates["stream.read"] = n / secs / 1e9
+    assert got == data, "FramedReader != input"
+    del got
+    log(card, f"streams: {n} B, writer {rates['stream.write']:.3f} GB/s "
+              f"(bytes equal native.compress_framed), reader "
+              f"{rates['stream.read']:.3f} GB/s (bytes equal the input)")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    child = _CLI_CHILD % {k: m.__name__ for k, m in _counters().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "corpus.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+
+        def cli(*args):
+            """(process, seconds, own stderr, child report) of the CLI."""
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", child, *args],
+                cwd=root, capture_output=True, text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            *own, last = proc.stderr.strip().splitlines() or [""]
+            try:
+                report = json.loads(last)
+            except ValueError:
+                raise AssertionError(
+                    f"CLI {args[0]}: no report: {proc.stderr[-2000:]}")
+            assert report["device"] == str(dev), report
+            return proc, secs, "\n".join(own).strip(), report
+
+        # the writer's batches launch the CRC kernel; the reader's
+        # records decode on the host (native walk + host CRC), as in JAX
+        for name, args, out, want in (
+                ("compress", ("compress", "--backend", "torch", src, "-o",
+                              src + ".sz"), src + ".sz", ref),
+                ("decompress", ("decompress", "--backend", "torch",
+                                src + ".sz", "-o", src + ".out"),
+                 src + ".out", data)):
+            proc, secs, own, report = cli(*args)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+            with open(out, "rb") as f:
+                assert f.read() == want, f"CLI {name} output"
+            counts[f"cli.{name}"] = report["launches"]
+            if name == "compress":
+                assert report["launches"]["crc32c_rows"] > 0, report
+            rates[f"cli.{name}"] = n / secs / 1e9
+            log(card, f"CLI {name} --backend torch on {report['device']}: "
+                      f"{n} B in {secs:.4f} s = "
+                      f"{rates[f'cli.{name}']:.3f} GB/s with process start, "
+                      f"kernel launches {report['launches']}; its own "
+                      f"line: {own}")
+        with open(src + ".bad", "wb") as f:
+            f.write(flip_payload_byte(ref))
+        proc, _, _, _ = cli("verify", "--backend", "torch", src + ".bad")
+        verify_rc = proc.returncode
+        assert verify_rc == exit_code_for(ChecksumError()), \
+            (verify_rc, proc.stderr[-2000:])
+        with open(os.path.join(tmp, "wpe.sz"), "wb") as f:
+            f.write(info_blob)
+        proc, _, _, _ = cli("info", os.path.join(tmp, "wpe.sz"))
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        shape = [GPT2_MEDIUM["n_ctx"], GPT2_MEDIUM["d_model"]]
+        assert f"dtype=float32 shape={shape}" in proc.stdout, proc.stdout
+        log(card, f"CLI: compress and decompress outputs byte-identical; "
+                  f"verify of a corrupted file exited {verify_rc} "
+                  f"(exit_code_for(ChecksumError)); info: "
+                  f"{proc.stdout.strip().splitlines()[-1]}")
+    return rates, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--id-mib", type=int, default=256)
@@ -763,6 +1060,10 @@ def main() -> int:
     ap.add_argument("--seq-mib", type=int, default=256)
     ap.add_argument("--wave-mib", type=int, default=256)
     ap.add_argument("--devmatch-mib", type=int, default=256)
+    ap.add_argument("--ckpt-layers", type=int,
+                    default=GPT2_MEDIUM["n_layer"],
+                    help="layers of the phase-15 GPT-2 medium state")
+    ap.add_argument("--stream-mib", type=int, default=256)
     ap.add_argument("--seed", type=int, default=20260816)
     args = ap.parse_args()
 
@@ -802,9 +1103,12 @@ def main() -> int:
 
     for k in dc.HOST_FALLBACKS:
         dc.HOST_FALLBACKS[k] = 0
-    rates, counts = main_path(card, dev, args.id_mib, args.classify_mib,
-                              args.seq_mib, args.wave_mib, args.devmatch_mib,
-                              args.seed)
+    full = corpus_bytes(max(args.id_mib, args.seq_mib, args.wave_mib,
+                            args.devmatch_mib, args.stream_mib) << 20,
+                        args.seed)
+    rates, counts = main_path(card, dev, full, args.id_mib,
+                              args.classify_mib, args.seq_mib, args.wave_mib,
+                              args.devmatch_mib)
     launches = {name: sum(c[name] for c in counts.values())
                 for name in KERNELS}
     log(card, f"launches on the main path (id + classify + seq + wave + "
@@ -813,6 +1117,18 @@ def main() -> int:
 
     times = kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave,
                          match)
+
+    ck_rates, ck_counts, info_blob = checkpoint_phase(
+        card, dev, args.ckpt_layers, args.seed)
+    st_rates, st_counts = stream_phase(
+        card, dev, full[: args.stream_mib << 20], info_blob)
+    del full
+    rates.update(ck_rates, **st_rates)
+    counts.update(ck_counts, **st_counts)
+    launches = {name: sum(c[name] for c in counts.values())
+                for name in KERNELS}
+    log(card, f"launches over every counted run (phases 9-13, 15, 16): "
+              f"{launches}")
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
             "wavegroup": wave_err, "match_cands": match_err}

@@ -3,21 +3,27 @@
 A port beside the JAX package, which stays the reference.  It imports
 ``torch`` and never ``jax``; from ``snappy_tpu`` it uses only the
 JAX-free modules: ``spec`` (the oracle and the format), ``errors``,
-``native`` (the C++ host codec), ``bench.corpus`` and
-``utils.hostmem``.
+``native`` (the C++ host codec), ``kernels.encode_np`` (the "np"
+backend), ``bench.corpus``, ``utils`` (``hostmem``, ``progress``,
+``log``) and the file helpers of ``cli.main``.
 
 Layers:
   device.py   the one device pick (``cuda:0`` when present, else ``cpu``)
   kernels/    hand-written CUDA kernels (``csrc/``), built with nvcc at
               first use, each beside its plain PyTorch version
-  runtime/    batching, pinned host staging, the framed codec
-  api.py      the public entry points
+  runtime/    batching, pinned host staging, the framed codec, and the
+              streaming FramedReader / FramedWriter
+  api.py      the public entry points and the backend registry
+  checkpoint  tensors and state dicts as framed streams
+  cli/        the ``tpusnappy-torch`` tool (``python -m snappy_tpu_torch``)
 
 Public API: compress / decompress (raw block format), compress_framed /
 decompress_framed (framed .sz format), decompress_to_device /
 decompress_framed_to_device (stream -> device tensor) and
 compress_from_device / compress_framed_from_device (device tensor ->
-stream; the framed form computes each chunk's CRC-32C on the device).
+stream; the framed form computes each chunk's CRC-32C on the device),
+decompress_into / decompress_framed_into (into a caller's numpy buffer),
+FramedReader / FramedWriter and the ``checkpoint`` module.
 """
 
 from snappy_tpu.errors import (
@@ -42,6 +48,8 @@ __all__ = [
     "decompress",
     "compress_framed",
     "decompress_framed",
+    "decompress_into",
+    "decompress_framed_into",
     "decompress_to_device",
     "decompress_framed_to_device",
     "compress_framed_from_device",
@@ -58,4 +66,12 @@ def __getattr__(name):
         from snappy_tpu_torch import api
 
         return getattr(api, name)
+    if name in ("FramedReader", "FramedWriter"):
+        from snappy_tpu_torch.runtime import stream
+
+        return getattr(stream, name)
+    if name == "checkpoint":
+        import importlib
+
+        return importlib.import_module("snappy_tpu_torch.checkpoint")
     raise AttributeError(f"module 'snappy_tpu_torch' has no attribute {name!r}")

@@ -1,41 +1,183 @@
 """Public API of the port: the codec entry points of ``snappy_tpu.api``
-on PyTorch.
+on PyTorch, with the port's own backend registry.
 
-Bytes in and bytes out for the raw and framed formats, plus the
-to-device / from-device matrix that takes and returns uint8
-``torch.Tensor``s.  Every function takes ``device=``; ``None`` is the
-pick of :mod:`snappy_tpu_torch.device` (``cuda:0`` when there is a GPU,
-else ``cpu``), and for the from-device functions the tensor's own
+Bytes in and bytes out for the raw and framed formats route through a
+registry of interchangeable backends, selectable per call
+(``backend=``) or through ``SNAPPY_TPU_BACKEND``:
+
+  "torch"   the port's device codec (``runtime.device_codec``), in the
+            role that "jnp" plays in the JAX package; the default
+  "native"  the shared C++ host codec (``snappy_tpu.native``)
+  "np"      ``snappy_tpu.kernels.encode_np`` and the oracle's decoder
+  "oracle"  the pure-Python reference (``snappy_tpu.spec``)
+  "auto"    the JAX package's preference: "native", else "oracle"
+
+The registry is the port's own: ``snappy_tpu.api`` registers "jnp" and
+so imports jax on its first call.  Unlike the JAX package, whose
+default is "auto", a call with neither ``backend=`` nor
+``SNAPPY_TPU_BACKEND`` runs "torch", so the port's entry points keep
+running on the device.  ``device=`` reaches "torch" only; the host
+backends ignore it.
+
+The to-device / from-device matrix takes and returns uint8
+``torch.Tensor``s and always runs the device codec.  ``device=None`` is
+the pick of :mod:`snappy_tpu_torch.device` (``cuda:0`` when there is a
+GPU, else ``cpu``), and for the from-device functions the tensor's own
 device.
 """
 
 from __future__ import annotations
 
+import functools
+import os
+from typing import Callable
+
+import numpy as np
 import torch
 
 from snappy_tpu_torch.runtime import device_codec
 
+_BACKENDS: dict[str, dict[str, Callable]] = {}
 
-def compress(data: bytes, *, device=None) -> bytes:
+DEFAULT_BACKEND = "torch"
+_PREFERENCE = ("native", "oracle")  # "auto", as in the JAX package
+
+
+def register_backend(name: str, **fns: Callable) -> None:
+    _BACKENDS.setdefault(name, {}).update(fns)
+
+
+def available_backends() -> list[str]:
+    _ensure_default_backends()
+    return sorted(_BACKENDS)
+
+
+def _ensure_default_backends() -> None:
+    if "oracle" not in _BACKENDS:
+        from snappy_tpu.spec import framing, reference
+
+        register_backend(
+            "oracle",
+            compress=reference.compress,
+            decompress=reference.decompress,
+            compress_framed=framing.compress_framed,
+            decompress_framed=framing.decompress_framed,
+        )
+    if "np" not in _BACKENDS:
+        from snappy_tpu.kernels import encode_np
+        from snappy_tpu.spec import framing, reference
+
+        register_backend(
+            "np",
+            compress=encode_np.compress,
+            decompress=reference.decompress,
+            compress_framed=framing.compress_framed,
+            decompress_framed=framing.decompress_framed,
+        )
+    if "native" not in _BACKENDS:
+        from snappy_tpu import native
+
+        if native.available():
+            register_backend(
+                "native",
+                compress=native.compress,
+                decompress=native.decompress,
+                compress_framed=native.compress_framed,
+                decompress_framed=native.decompress_framed,
+            )
+    if "torch" not in _BACKENDS:
+        register_backend(
+            "torch",
+            compress=device_codec.compress,
+            decompress=device_codec.decompress,
+            compress_framed=device_codec.compress_framed,
+            decompress_framed=device_codec.decompress_framed,
+        )
+
+
+def _resolve(op: str, backend: str | None, device=None) -> Callable:
+    """The function of backend ``backend`` (None: ``SNAPPY_TPU_BACKEND``,
+    else "torch") for ``op``; "torch" gets ``device`` bound."""
+    _ensure_default_backends()
+    name = backend or os.environ.get("SNAPPY_TPU_BACKEND") or DEFAULT_BACKEND
+    if name == "auto":
+        name = next((c for c in _PREFERENCE
+                     if op in _BACKENDS.get(c, ())), None)
+        if name is None:
+            raise RuntimeError(f"no backend provides {op!r}")
+    try:
+        fn = _BACKENDS[name][op]
+    except KeyError:
+        raise ValueError(
+            f"backend {name!r} does not provide {op!r}; available: "
+            f"{sorted(b for b, ops in _BACKENDS.items() if op in ops)}"
+        ) from None
+    return functools.partial(fn, device=device) if name == "torch" else fn
+
+
+def compress(data: bytes, *, backend: str | None = None,
+             device=None) -> bytes:
     """Compress bytes into the raw Snappy block format."""
-    return device_codec.compress(data, device=device)
+    return _resolve("compress", backend, device)(data)
 
 
-def decompress(data: bytes, *, device=None) -> bytes:
+def decompress(data: bytes, *, backend: str | None = None,
+               device=None) -> bytes:
     """Decompress a raw Snappy block-format stream."""
-    return device_codec.decompress(data, device=device)
+    return _resolve("decompress", backend, device)(data)
 
 
-def compress_framed(data: bytes, *, device=None) -> bytes:
+def compress_framed(data: bytes, *, backend: str | None = None,
+                    device=None) -> bytes:
     """Compress bytes into the framed (.sz) stream format."""
-    return device_codec.compress_framed(data, device=device)
+    return _resolve("compress_framed", backend, device)(data)
 
 
 def decompress_framed(data: bytes, verify_checksums: bool = True, *,
-                      device=None) -> bytes:
+                      backend: str | None = None, device=None) -> bytes:
     """Decompress a framed (.sz) stream."""
-    return device_codec.decompress_framed(data, verify_checksums,
-                                          device=device)
+    return _resolve("decompress_framed", backend, device)(
+        data, verify_checksums)
+
+
+def _copy_into(blob: bytes, out) -> int:
+    if out.size < len(blob):
+        raise ValueError(f"out buffer {out.size} < decoded {len(blob)}")
+    out[: len(blob)] = np.frombuffer(blob, np.uint8)
+    return len(blob)
+
+
+def _host_backend() -> str:
+    """The backend of the into-entries without the native library:
+    ``SNAPPY_TPU_BACKEND``, else "auto", as in the JAX package ("torch"
+    needs the native library for its staging)."""
+    return os.environ.get("SNAPPY_TPU_BACKEND") or "auto"
+
+
+def decompress_into(data: bytes, out) -> int:
+    """Decompress a raw Snappy stream into a caller-owned uint8 numpy
+    buffer; returns the decoded length.  The native decoder writes in
+    place; without it, ``SNAPPY_TPU_BACKEND`` (else "auto") decodes and
+    the bytes are copied in."""
+    from snappy_tpu import native
+
+    if native.available():
+        return native.decompress_into(data, out)
+    return _copy_into(decompress(data, backend=_host_backend()), out)
+
+
+def decompress_framed_into(data: bytes, out,
+                           verify_checksums: bool = True) -> int:
+    """Decompress a framed (.sz) stream into a caller-owned uint8 numpy
+    buffer; returns the decoded length (see decompress_into)."""
+    from snappy_tpu import native
+
+    if native.available():
+        return native.decompress_framed_into(
+            data, out, verify_checksums=verify_checksums)
+    return _copy_into(
+        decompress_framed(data, verify_checksums, backend=_host_backend()),
+        out)
 
 
 def decompress_to_device(data: bytes, *, device=None) -> torch.Tensor:

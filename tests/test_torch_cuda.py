@@ -351,3 +351,77 @@ def test_devmatch_engine(cuda_device):
             ref += len(native.compress(blk)) - len(put_uvarint(len(blk)))
     assert km.launches == before + (len(blocks) + 7) // 8
     assert emitted < ref
+
+
+@pytest.mark.parametrize("mode", ["id", "seq"])
+def test_checkpoint_on_card(cuda_device, mode, monkeypatch):
+    """save_pytree / load_pytree of a GPT-2-shaped state on the card: the
+    CRC kernel runs in both directions (and the sequential kernels under
+    the device LZ engine), each stream after its manifest is
+    native.compress_framed of the tensor's bytes, and a flipped payload
+    byte and a truncated container raise."""
+    from snappy_tpu_torch import checkpoint as ck
+
+    if mode == "seq":
+        monkeypatch.setattr(dc, "FLAT", False)
+        monkeypatch.setattr(dc, "HOST_PARSE", False)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    d = 128
+    state = {"wte.weight": torch.randn(700, d, generator=g,
+                                       device=cuda_device) * 0.02,
+             "h.0.mlp.c_fc.weight": torch.randn(d, 4 * d, generator=g,
+                                                device=cuda_device) * 0.02,
+             "h.0.ln_1.weight": torch.ones(d, device=cuda_device),
+             "h.0.ln_1.bias": torch.zeros(d, device=cuda_device),
+             "half": torch.ones(3000, device=cuda_device).to(torch.bfloat16)}
+    before = kc.launches, kes.launches
+    blob = ck.save_pytree(state)
+    assert kc.launches > before[0]
+    if mode == "seq":
+        assert kes.launches > before[1]
+    for name, lo, hi in ck.container_entries(blob):
+        entry = blob[lo:hi]
+        n = int.from_bytes(entry[11:14], "little")
+        raw = state[name].reshape(-1).view(torch.uint8).cpu().numpy()
+        assert entry[:10] + entry[14 + n:] == native.compress_framed(
+            raw.tobytes()), name
+    before = kc.launches, kds.launches
+    back = ck.load_pytree(blob)
+    torch.cuda.synchronize()
+    assert kc.launches > before[0]
+    if mode == "seq":
+        assert kds.launches > before[1]
+    for k, v in state.items():
+        assert back[k].is_cuda and torch.equal(back[k], v), k
+    _n, lo, hi = ck.container_entries(blob)[-1]  # "wte.weight"
+    chunks, _ = dc._scan_frames(blob[lo:hi])
+    _t, p_off, p_len, _c, _d, _h = next(c for c in chunks if c[0] == 1)
+    bad = bytearray(blob)
+    bad[lo + p_off + p_len // 2] ^= 0x40  # a byte of a stored chunk
+    with pytest.raises(dc.ChecksumError):
+        ck.load_pytree(bytes(bad))
+    with pytest.raises(dc.CorruptError):
+        ck.load_pytree(blob[: len(blob) // 2])
+
+
+def test_stream_writer_on_card(cuda_device):
+    """FramedWriter(backend="torch") on the card: one CRC launch per
+    buffered batch, the bytes of native.compress_framed; FramedReader
+    gives the input back."""
+    import io
+
+    from snappy_tpu_torch.runtime.stream import FramedReader, FramedWriter
+
+    data = _corpus(24, 3 << 20) + b"tail" * 999
+    sink = io.BytesIO()
+    before = kc.launches
+    with FramedWriter(sink, backend="torch", buffer_chunks=8) as w:
+        for i in range(0, len(data), 1 << 20):
+            w.write(data[i : i + (1 << 20)])
+    assert kc.launches - before >= (len(data) >> 16) // 8
+    assert sink.getvalue() == native.compress_framed(data)
+    r = FramedReader(io.BytesIO(sink.getvalue()), backend="torch")
+    got = bytearray()
+    while piece := r.read(1 << 20):
+        got += piece
+    assert bytes(got) == data
