@@ -5,9 +5,10 @@ Run from the root of a checkout, on a machine with a CUDA GPU:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels (nvcc, sm_90a, one process per
-source) and the shared native host codec from the sources, checks each
-kernel bit for bit against its plain PyTorch version at the main path's
-shapes, drives the framed to-device / from-device path through the
+source) and the port's native host codec (g++) from the sources, checks
+each kernel bit for bit against its plain PyTorch version at the main
+path's shapes (the sequential kernels also at the seq engine's launch
+width, the card's resident rows, with hostile rows), drives the framed to-device / from-device path through the
 public entry points in each runtime engine (id: 256 MiB, classify:
 64 MiB, the device LZ engine "seq": 256 MiB of the seeded benchmark
 corpus) against the native codec, drives the two standalone engines
@@ -22,8 +23,10 @@ streaming reader and writer and the CLI over 256 MiB of the corpus
 Every check raises on failure (nothing is caught), so any failure exits
 non-zero; without a GPU it exits non-zero before printing any result.
 
-The last two lines are one JSON object per line: the kernel table,
-then {"ok": true, "device": {...}}.
+The last two lines are one JSON object per line: the kernel table
+(each kernel's launches over the counted runs, max_abs_err, ms and
+plain_ms at its main-path shape, bound_ms = its bytes over 3.35 TB/s,
+library_ms null), then {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -104,7 +107,7 @@ def timed(fn):
 
 
 def corpus_bytes(total: int, seed: int) -> bytes:
-    from snappy_tpu.bench.corpus import make_corpus
+    from snappy_tpu_torch.bench.corpus import make_corpus
 
     return b"".join(d for _, d in make_corpus(total, seed=seed))
 
@@ -112,7 +115,7 @@ def corpus_bytes(total: int, seed: int) -> bytes:
 def crc_phase(card, dev, seed):
     """Phase 3: the CRC kernel against its plain version and the native
     CRC, including a 520-row panel read in place."""
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import crc32c as kc
 
     rng = np.random.default_rng(seed)
@@ -150,7 +153,7 @@ def crc_phase(card, dev, seed):
 def _stage_decode_plans(data: bytes, nb: int):
     """Native flat decode plans (stage_flat_dec_batch) for the first nb
     chunks of native.compress_framed(data)."""
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.runtime.device_codec import _scan_frames
 
@@ -171,7 +174,7 @@ def _stage_decode_plans(data: bytes, nb: int):
 
 
 def _stage_encode_plans(data: bytes, nb: int):
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import encode_flat as ke
 
     n = min(nb, len(data) // 65536)
@@ -191,7 +194,7 @@ def _stage_encode_plans(data: bytes, nb: int):
 def flat_phase(card, dev, data):
     """Phase 4: the flat kernel against its plain version on real native
     plans, decode (out_rows 520) and encode (out_rows 640)."""
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.kernels import encode_flat as ke
 
@@ -245,7 +248,7 @@ def _counters():
 def _bad_streams() -> list:
     """Corrupt element streams (raw format), one or more per error code
     of the sequential decoder, with its int32 wrap cases."""
-    from snappy_tpu.spec.format import put_uvarint
+    from snappy_tpu_torch.spec.format import put_uvarint
 
     lit = b"\x0cabcd"  # a 4-byte literal
     return [
@@ -262,79 +265,118 @@ def _bad_streams() -> list:
     ]
 
 
-def seq_decode_phase(card, dev, data):
+def _spread(full: bytes, n: int, phase: float) -> list:
+    """n 64 KiB blocks taken evenly across the corpus ``full`` (every
+    kind of data in it), starting ``phase`` of a stride in."""
+    nblk = len(full) >> 16
+    step = nblk / n
+    return [full[int(i * step + phase * step) << 16 :
+                 (int(i * step + phase * step) + 1) << 16] for i in range(n)]
+
+
+def seq_decode_phase(card, dev, data, full):
     """Phase 5: the sequential decode kernel against its plain version and the
-    native decoder: SEQ_ROWS corpus chunks as native.compress emits them
-    in the runtime's 66,560-byte rows, plus corrupt rows hitting every
-    error code (err vectors compared too)."""
-    from snappy_tpu import native
-    from snappy_tpu.spec.format import read_uvarint
+    native decoder, twice: SEQ_ROWS corpus chunks (PRs 2-4's shape) and a
+    launch at the seq engine's width (the card's resident rows) of corpus
+    chunks taken across the 256 MiB corpus; each as native.compress emits
+    them in the runtime's 66,560-byte rows, plus an all-zero chunk, a
+    random one, an empty stream (a stored chunk's row) and corrupt rows
+    hitting every error code (err vectors compared too).  Returns the
+    largest difference, the SEQ_ROWS arguments, the wide arguments, and
+    the plain version's seconds on the wide launch."""
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.spec.format import read_uvarint
     from snappy_tpu_torch.kernels import decode_seq as kds
 
-    blocks = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
-    streams = [native.compress(b) for b in blocks] + _bad_streams()
-    nb = len(streams)
-    comp = np.zeros((nb, 66560), np.uint8)
-    starts, clens, dlens = (np.zeros(nb, np.int32) for _ in range(3))
-    for i, c in enumerate(streams):
-        dlens[i], starts[i] = read_uvarint(c, 0)
-        comp[i, : len(c)] = np.frombuffer(c, np.uint8)
-        clens[i] = len(c)
-    starts[-1] = clens[-1] + 3  # an element stream past its payload end
-    args = kds.stage_decode(comp, starts, clens, dlens, dev)
-    out, err = kds.decode_blocks_seq(*args, 65536)
-    pout, perr = kds.decode_blocks_seq_plain(*args, 65536)
-    torch.cuda.synchronize()
-    max_err = max(int((out.to(torch.int16) - pout.to(torch.int16)).abs().max()),
-                  int((err - perr).abs().max()))
-    assert torch.equal(out, pout) and torch.equal(err, perr), \
-        "seq decode kernel != plain"
-    codes = err.cpu().numpy()
-    assert set(codes.tolist()) == {0, 1, 2, 3, 4}, codes
-    out_h = out.cpu().numpy()
-    for i, b in enumerate(blocks):
-        assert codes[i] == 0 and out_h[i, : len(b)].tobytes() == b, i
-    log(card, f"seq_decode: {SEQ_ROWS} corpus rows byte-identical to plain "
-              f"and native.decompress, {nb - SEQ_ROWS} corrupt rows with err "
-              f"{codes[SEQ_ROWS:].tolist()} equal to plain "
-              f"(max_abs_err {max_err})")
-    return max_err, tuple(t[:SEQ_ROWS] for t in args)
+    rng = np.random.default_rng(10)
+    extra = [bytes(65536), rng.bytes(65536), b""]
+    width = kds.resident_rows(dev, 65536)
+    runs = {}
+    for name, blocks in (
+            ("64", [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]),
+            ("wide", _spread(full, width - len(extra) - len(_bad_streams()),
+                             0.25) + extra)):
+        streams = [native.compress(b) for b in blocks] + _bad_streams()
+        nb = len(streams)
+        comp = np.zeros((nb, 66560), np.uint8)
+        starts, clens, dlens = (np.zeros(nb, np.int32) for _ in range(3))
+        for i, c in enumerate(streams):
+            dlens[i], starts[i] = read_uvarint(c, 0)
+            comp[i, : len(c)] = np.frombuffer(c, np.uint8)
+            clens[i] = len(c)
+        starts[-1] = clens[-1] + 3  # an element stream past its payload end
+        args = kds.stage_decode(comp, starts, clens, dlens, dev)
+        out, err = kds.decode_blocks_seq(*args, 65536)
+        (pout, perr), plain_s = timed(
+            lambda: kds.decode_blocks_seq_plain(*args, 65536))
+        max_err = max(
+            int((out.to(torch.int16) - pout.to(torch.int16)).abs().max()),
+            int((err - perr).abs().max()))
+        assert torch.equal(out, pout) and torch.equal(err, perr), \
+            f"seq decode kernel != plain ({name})"
+        codes = err.cpu().numpy()
+        assert set(codes.tolist()) == {0, 1, 2, 3, 4}, codes
+        out_h = out.cpu().numpy()
+        for i, b in enumerate(blocks):
+            assert codes[i] == 0 and out_h[i, : len(b)].tobytes() == b, i
+        nbad = nb - len(blocks)
+        log(card, f"seq_decode [{nb} rows]: {len(blocks)} rows (corpus"
+                  f"{', zero, random, empty' if name == 'wide' else ''}) "
+                  f"byte-identical to plain and native.decompress, {nbad} "
+                  f"corrupt rows with err {codes[-nbad:].tolist()} equal to "
+                  f"plain (max_abs_err {max_err}); plain {plain_s:.3f} s")
+        runs[name] = (max_err, args, plain_s)
+    wide = runs["wide"][1]
+    return (max(r[0] for r in runs.values()),
+            tuple(t[:SEQ_ROWS] for t in runs["64"][1]), wide,
+            runs["wide"][2])
 
 
-def seq_encode_phase(card, dev, data):
+def seq_encode_phase(card, dev, data, full):
     """Phase 6: the sequential encode kernel against its plain version and the
-    native encoder: SEQ_ROWS corpus chunks, plus edge rows (empty, 17 and
-    18 bytes, zeros, run-length, random)."""
-    from snappy_tpu import native
-    from snappy_tpu.spec.format import read_uvarint
+    native encoder, twice: SEQ_ROWS corpus chunks (PRs 2-4's shape) and a
+    launch at the seq engine's width of corpus chunks taken across the
+    256 MiB corpus, plus edge rows (empty, 17 and 18 bytes, zeros,
+    run-length, random).  Returns as seq_decode_phase does."""
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.spec.format import read_uvarint
     from snappy_tpu_torch.kernels import encode_seq as kes
 
     rng = np.random.default_rng(11)
-    samples = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
-    samples += [b"", b"x" * 17, b"x" * 18, bytes(65536), b"ab" * 32768,
-                rng.bytes(65536), rng.bytes(1000) + b"z" * 3000]
-    blocks = np.zeros((len(samples), 65536), np.uint8)
-    lens = np.array([len(s) for s in samples], np.int32)
-    for i, s in enumerate(samples):
-        blocks[i, : len(s)] = np.frombuffer(s, np.uint8)
-    args = kes.stage_encode(blocks, lens, dev)
-    comp, clens, err = kes.encode_blocks_seq(*args)
-    pcomp, pclens, perr = kes.encode_blocks_seq_plain(*args)
-    torch.cuda.synchronize()
-    max_err = max(
-        int((comp.to(torch.int16) - pcomp.to(torch.int16)).abs().max()),
-        int((clens - pclens).abs().max()), int((err - perr).abs().max()))
-    assert torch.equal(comp, pcomp) and torch.equal(clens, pclens) \
-        and torch.equal(err, perr), "seq encode kernel != plain"
-    comp_h, clens_h = comp.cpu().numpy(), clens.cpu().numpy()
-    for i, s in enumerate(samples):
-        nat = native.compress(s)
-        assert comp_h[i, : clens_h[i]].tobytes() == \
-            nat[read_uvarint(nat, 0)[1] :], f"encode row {i}"
-    log(card, f"seq_encode: {SEQ_ROWS} corpus rows and {len(samples) - SEQ_ROWS}"
-              f" edge rows byte-identical to plain and native.compress "
-              f"(max_abs_err {max_err})")
-    return max_err, tuple(t[:SEQ_ROWS] for t in args)
+    extra = [b"", b"x" * 17, b"x" * 18, bytes(65536), b"ab" * 32768,
+             rng.bytes(65536), rng.bytes(1000) + b"z" * 3000]
+    width = kes.resident_rows(dev, 65536)
+    runs = {}
+    for name, samples in (
+            ("64", [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]),
+            ("wide", _spread(full, width - len(extra), 0.75))):
+        samples = samples + extra
+        blocks = np.zeros((len(samples), 65536), np.uint8)
+        lens = np.array([len(s) for s in samples], np.int32)
+        for i, s in enumerate(samples):
+            blocks[i, : len(s)] = np.frombuffer(s, np.uint8)
+        args = kes.stage_encode(blocks, lens, dev)
+        comp, clens, err = kes.encode_blocks_seq(*args)
+        (pcomp, pclens, perr), plain_s = timed(
+            lambda: kes.encode_blocks_seq_plain(*args))
+        max_err = max(
+            int((comp.to(torch.int16) - pcomp.to(torch.int16)).abs().max()),
+            int((clens - pclens).abs().max()), int((err - perr).abs().max()))
+        assert torch.equal(comp, pcomp) and torch.equal(clens, pclens) \
+            and torch.equal(err, perr), f"seq encode kernel != plain ({name})"
+        comp_h, clens_h = comp.cpu().numpy(), clens.cpu().numpy()
+        for i, s in enumerate(samples):
+            nat = native.compress(s)
+            assert comp_h[i, : clens_h[i]].tobytes() == \
+                nat[read_uvarint(nat, 0)[1] :], f"encode row {i} ({name})"
+        log(card, f"seq_encode [{len(samples)} rows]: "
+                  f"{len(samples) - len(extra)} corpus rows and {len(extra)} "
+                  f"edge rows byte-identical to plain and native.compress "
+                  f"(max_abs_err {max_err}); plain {plain_s:.3f} s")
+        runs[name] = (max_err, args, plain_s)
+    return (max(r[0] for r in runs.values()),
+            tuple(t[:SEQ_ROWS] for t in runs["64"][1]), runs["wide"][1],
+            runs["wide"][2])
 
 
 def wave_phase(card, dev, data):
@@ -342,7 +384,7 @@ def wave_phase(card, dev, data):
     input bytes: SEQ_ROWS corpus chunks as native.compress emits them,
     planned natively (stage_waves), plus edge rows (zeros, run-length,
     random, empty)."""
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
 
     rng = np.random.default_rng(12)
@@ -372,9 +414,8 @@ def match_phase(card, dev, data):
     """Phase 8: the match kernel against its plain version in both
     routes (home and sorted pairs), SEQ_ROWS corpus chunks plus edge
     blocks (empty, 3 B, 4 B, zeros, random, and exact 64 KiB blocks,
-    whose last v-words wrap round), some rows against
-    match_np.find_candidates."""
-    from snappy_tpu.kernels import match_np
+    whose last v-words wrap round).  The CPU tests hold the plain version
+    against the JAX package's match_np.find_candidates."""
     from snappy_tpu_torch.kernels import match as km
 
     rng = np.random.default_rng(13)
@@ -390,17 +431,9 @@ def match_phase(card, dev, data):
         torch.cuda.synchronize()
         max_err = max(max_err, int((got.long() - plain.long()).abs().max()))
         assert torch.equal(got, plain), f"match kernel != plain (home={home})"
-        cands = got.cpu().numpy()
-        if not home:
-            cands = km.scatter_home(cands)
-        cands = cands.reshape(len(blocks), -1)
-        for i in [0, SEQ_ROWS - 1] + list(range(SEQ_ROWS, len(blocks))):
-            assert np.array_equal(cands[i], match_np.find_candidates(
-                blocks[i])), f"match row {i} != match_np (home={home})"
     log(card, f"match_cands: {SEQ_ROWS} corpus rows and "
               f"{len(blocks) - SEQ_ROWS} edge rows bit-exact to plain in both "
-              f"routes, {len(blocks) - SEQ_ROWS + 2} rows to "
-              f"match_np.find_candidates (max_abs_err {max_err})")
+              f"routes (max_abs_err {max_err})")
     return max_err, tuple(t[:SEQ_ROWS] for t in args)
 
 
@@ -419,8 +452,8 @@ def break_element(fr: bytes) -> bytes:
 def flip_payload_byte(fr: bytes) -> bytes:
     """fr with one payload byte of a middle chunk changed such that the
     chunk still decodes to its stated length: only its CRC can tell."""
-    from snappy_tpu import native
-    from snappy_tpu.errors import SnappyError
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.errors import SnappyError
     from snappy_tpu_torch.runtime.device_codec import _scan_frames
 
     chunks, _ = _scan_frames(fr)
@@ -471,10 +504,12 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
     from concurrent.futures import ThreadPoolExecutor
 
     import snappy_tpu_torch as st
-    from snappy_tpu import native
-    from snappy_tpu.spec import framing
-    from snappy_tpu.spec.format import put_uvarint
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.spec import framing
+    from snappy_tpu_torch.spec.format import put_uvarint
+    from snappy_tpu_torch.kernels import decode_seq as kds
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
+    from snappy_tpu_torch.kernels import encode_seq as kes
     from snappy_tpu_torch.kernels import match as km
     from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -561,6 +596,10 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
         n = len(data)
         ref = native.compress_framed(data, threads=4)
         raw_ref = native.compress(data)
+        log(card, f"seq engine launch width: seq_decode "
+                  f"{dc._seq_width(kds.resident_rows, dev, 65536)} rows, "
+                  f"seq_encode {dc._seq_width(kes.resident_rows, dev, 65536)}"
+                  f" rows (SMs x resident blocks per SM; BATCH {dc.BATCH})")
         fr = run("seq.compress_framed", n,
                  lambda: st.compress_framed(data, device=dev))
         assert fr == ref, "seq compress_framed != native.compress_framed"
@@ -689,6 +728,7 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
                          ("devmatch", ["match_cands"])):
         for name in kernels:
             assert counts[eng][name] > 0, f"{name} never launched in {eng}"
+    replays.update(seq_launches(dev, full[: seq_mib << 20]))
     for name, (n, stage_s, wall, launches) in replays.items():
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -699,6 +739,11 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
         torch.cuda.synchronize()
         kern_s = start.elapsed_time(end) / 1e3
         rates[f"{name}.kernel"] = n / kern_s / 1e9
+        if wall is None:  # a seq-engine call: its rate is phase 11's line
+            log(card, f"{name}: {n} B; its {len(launches)} launches "
+                      f"({stage_s}) replayed back to back {kern_s:.4f} s = "
+                      f"{rates[f'{name}.kernel']:.3f} GB/s kernel-only")
+            continue
         rates[f"{name}.call"] = n / wall / 1e9
         log(card, f"{name}: {n} B; staging {stage_s:.4f} s (sum over "
                   f"threads); its {len(launches)} launches replayed back to "
@@ -708,10 +753,108 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
     return rates, counts
 
 
-def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave, match):
-    """Phase 14: each kernel against its plain version at the main
-    path's shapes (BATCH rows; SEQ_ROWS corpus rows for the sequential,
-    wave and match kernels), alternating plain, kernel, kernel, plain."""
+def seq_launches(dev, data: bytes) -> dict:
+    """The seq engine's kernel launches for ``compress_framed(data)`` and
+    ``decompress_framed_to_device`` of its stream, recorded (arguments
+    cloned, since the runtime reuses its staging tensors) in one more
+    uncounted run of each, for main_path's back-to-back replay: {name:
+    (bytes, "rows per launch", None, [launch, ...])}."""
+    import snappy_tpu_torch as st
+    from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    recorded = {"seq_decode": [], "seq_encode": []}
+    real = {"seq_decode": dc.decode_blocks_seq,
+            "seq_encode": dc.encode_blocks_seq}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            recorded[name].append((tuple(
+                a.clone() if torch.is_tensor(a) else a for a in args), kwargs))
+            return real[name](*args, **kwargs)
+        return call
+
+    dc.FLAT, dc.HOST_PARSE = False, False
+    dc.decode_blocks_seq = recorder("seq_decode")
+    dc.encode_blocks_seq = recorder("seq_encode")
+    try:
+        fr = st.compress_framed(data, device=dev)
+        st.decompress_framed_to_device(fr, device=dev)
+    finally:
+        dc.decode_blocks_seq = real["seq_decode"]
+        dc.encode_blocks_seq = real["seq_encode"]
+        dc.FLAT, dc.HOST_PARSE = True, True
+    out = {}
+    for name, fn in (("seq_decode", kds.decode_blocks_seq),
+                     ("seq_encode", kes.encode_blocks_seq)):
+        widths = sorted({a[0].shape[0] for a, _ in recorded[name]})
+        out[f"seq.{name}"] = (
+            len(data), f"{'/'.join(map(str, widths))} rows a launch", None,
+            [lambda a=a, k=k, fn=fn: fn(*a, **k) for a, k in recorded[name]])
+    return out
+
+
+# H100 SXM device memory rate (NVIDIA's data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def kernel_bytes(name: str, args, out_max: int = 65536) -> int:
+    """Bytes a kernel's function must move for ``args`` (its wrapper's
+    arguments): each input byte the result depends on read once, each
+    output byte written once.  Rows count their stream or block lengths,
+    not their padded widths; outputs count whole rows, which the
+    functions define (zeros after the data)."""
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import match as km
+
+    nb = args[0].shape[0]
+    if name == "crc32c_rows":
+        rows, lens = args
+        return int(lens.sum()) + _nbytes(lens) + 8 * nb
+    if name == "flat_exec":
+        b_u8, meta, starts, ntrips = args
+        trips = int((ntrips & 0xFFFF).sum())
+        per_trip = 2 * kf.NSUB * kf.VEC * 4 + kf.NSUB * 4
+        return _nbytes(b_u8) + trips * per_trip + _nbytes(ntrips) \
+            + nb * out_max
+    if name == "seq_decode":
+        comp, starts, clens, dlens = args
+        used = clens.clamp(0, comp.shape[1]) - starts.clamp(0, comp.shape[1])
+        return int(used.clamp(min=0).sum()) + 12 * nb + nb * (out_max + 4)
+    if name == "seq_encode":
+        blocks, lens = args
+        return int(lens.sum()) + 4 * nb \
+            + nb * (kes.comp_width(blocks.shape[1]) + 8)
+    if name == "wavegroup":
+        comp, words, ngroups = args
+        # a row's stream ends at its last nonzero byte (or a few bytes on)
+        idx = torch.arange(1, comp.shape[1] + 1, device=comp.device)
+        used = ((comp != 0) * idx).amax(dim=1)
+        return int(used.sum()) + int(ngroups.sum()) * 16 * 4 \
+            + _nbytes(ngroups) + nb * out_max
+    if name == "match_cands":
+        words, npos = args
+        return _nbytes(words) + _nbytes(npos) + nb * km._check(*args) * 4
+    raise KeyError(name)
+
+
+def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
+    """Phase 14: each kernel against its plain version at the main path's
+    shapes, alternating plain, kernel, kernel, plain (a serial walk's
+    plain once, before the kernel): BATCH rows (SEQ_ROWS
+    corpus rows for the wave and match kernels); the sequential kernels
+    at SEQ_ROWS corpus rows (PRs 2-4's shape) and at the seq engine's
+    width, whose plain time is phases 5-6's single call on the same
+    launch.  Each kernel's bound: its bytes (kernel_bytes) over the
+    card's memory rate; the integer and byte work per byte is far under
+    the card's operation rates, so bytes bound all six.  Returns, per
+    kernel at its main-path shape: ms, plain_ms, bound_ms, rows."""
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.kernels import decode_seq as kds
@@ -726,36 +869,63 @@ def kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave, match):
     rows = panel[:, :kc.CHUNK]
     lens = torch.full((dc.BATCH,), kc.CHUNK, dtype=torch.int32, device=dev)
     out = {}
-    runs = {
-        "crc32c_rows": (lambda: kc.crc32c_chunks(rows, lens),
-                        lambda: kc.crc32c_chunks_plain(rows, lens), 200, 5,
-                        dc.BATCH),
-        "flat_exec": (lambda: kf.decode_blocks_flat(*plan, dst_max=65536),
-                      lambda: kf.decode_blocks_flat_plain(*plan,
-                                                          dst_max=65536),
-                      200, 5, plan[0].shape[0]),
-        "seq_decode": (lambda: kds.decode_blocks_seq(*seq_dec, 65536),
-                       lambda: kds.decode_blocks_seq_plain(*seq_dec, 65536),
-                       20, 1, seq_dec[0].shape[0]),
-        "seq_encode": (lambda: kes.encode_blocks_seq(*seq_enc),
-                       lambda: kes.encode_blocks_seq_plain(*seq_enc),
-                       20, 1, seq_enc[0].shape[0]),
-        "wavegroup": (lambda: kw.decode_blocks_wavegroup(*wave, 65536),
-                      lambda: kw.decode_blocks_wavegroup_plain(*wave, 65536),
-                      50, 2, wave[0].shape[0]),
-        "match_cands": (lambda: km.find_candidates(*match),
-                        lambda: km.find_candidates_plain(*match),
-                        50, 5, match[0].shape[0]),
+    fns = {
+        "crc32c_rows": (kc.crc32c_chunks, kc.crc32c_chunks_plain, {}),
+        "flat_exec": (kf.decode_blocks_flat, kf.decode_blocks_flat_plain,
+                      {"dst_max": 65536}),
+        "seq_decode": (kds.decode_blocks_seq, kds.decode_blocks_seq_plain,
+                       {"out_max": 65536}),
+        "seq_encode": (kes.encode_blocks_seq, kes.encode_blocks_seq_plain, {}),
+        "wavegroup": (kw.decode_blocks_wavegroup,
+                      kw.decode_blocks_wavegroup_plain, {"out_max": 65536}),
+        "match_cands": (km.find_candidates, km.find_candidates_plain, {}),
     }
-    for name, (kern, plain, k_iters, p_iters, nrows) in runs.items():
-        # a serial walk's single call needs no warm-up (seconds each)
-        p1 = time_ms(plain, p_iters, warm=p_iters > 1)
-        k1 = time_ms(kern, k_iters)
-        k2 = time_ms(kern, k_iters)
-        p2 = time_ms(plain, p_iters, warm=p_iters > 1)
-        out[name] = (min(k1, k2), min(p1, p2))
-        log(card, f"{name} at [{nrows} rows]: kernel {k1:.4f}/{k2:.4f} "
-                  f"ms, plain {p1:.4f}/{p2:.4f} ms")
+    # (name, shape label, args, kernel iters, plain iters or a plain ms)
+    runs = [("crc32c_rows", "", (rows, lens), 200, 5),
+            ("flat_exec", "", plan, 200, 5),
+            ("seq_decode", "64", seq64["seq_decode"], 20, 1),
+            ("seq_decode", "wide", seq_wide["seq_decode"][0], 10,
+             seq_wide["seq_decode"][1]),
+            ("seq_encode", "64", seq64["seq_encode"], 20, 1),
+            ("seq_encode", "wide", seq_wide["seq_encode"][0], 10,
+             seq_wide["seq_encode"][1]),
+            ("wavegroup", "", wave, 50, 2),
+            ("match_cands", "", match, 50, 5)]
+    for name, shape, args, k_iters, plain_it in runs:
+        kern_fn, plain_fn, kw_args = fns[name]
+        kern = lambda: kern_fn(*args, **kw_args)  # noqa: E731
+        plain = lambda: plain_fn(*args, **kw_args)  # noqa: E731
+        nrows = args[0].shape[0]
+        if plain_it == 1:
+            # a serial walk: one call, no warm-up (seconds to minutes)
+            plain_ms = time_ms(plain, 1, warm=False)
+            k1 = time_ms(kern, k_iters)
+            k2 = time_ms(kern, k_iters)
+            plain_txt = f"plain {plain_ms:.4f} ms (one call)"
+        elif isinstance(plain_it, int):
+            p1 = time_ms(plain, plain_it)
+            k1 = time_ms(kern, k_iters)
+            k2 = time_ms(kern, k_iters)
+            p2 = time_ms(plain, plain_it)
+            plain_txt = f"plain {p1:.4f}/{p2:.4f} ms"
+            plain_ms = min(p1, p2)
+        else:
+            k1 = time_ms(kern, k_iters)
+            k2 = time_ms(kern, k_iters)
+            plain_ms = plain_it
+            plain_txt = f"plain {plain_ms:.1f} ms (phases 5-6, one call)"
+        nbytes = kernel_bytes(name, args)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        res = {"ms": min(k1, k2), "plain_ms": plain_ms, "bound_ms": bound,
+               "rows": nrows}
+        if shape != "64":  # the main path's shape goes into the table
+            out[name] = res
+        else:
+            out[f"{name}.64"] = res
+        log(card, f"{name} at [{nrows} rows]: kernel {k1:.4f}/{k2:.4f} ms, "
+                  f"{plain_txt}; bound {bound:.4f} ms ({nbytes} B at "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s), "
+                  f"{nrows * 65536 / min(k1, k2) / 1e6:.3f} GB/s of 64 KiB rows")
     enc_k = time_ms(lambda: kf.decode_blocks_flat(
         *eplan, dst_max=81920, out_rows=640), 200)
     log(card, f"flat_exec encode replay at [{eplan[0].shape[0]} rows]: "
@@ -813,8 +983,8 @@ def checkpoint_phase(card, dev, layers: int, seed: int):
     state through the public checkpoint API, in the id engine and in the
     device LZ engine, each run counted.  Returns the rates and the runs'
     launch counts."""
-    from snappy_tpu import native
-    from snappy_tpu.errors import ChecksumError, CorruptError
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.errors import ChecksumError, CorruptError
     from snappy_tpu_torch import checkpoint as ck
     from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -898,6 +1068,13 @@ def checkpoint_phase(card, dev, layers: int, seed: int):
               f"byte raised CorruptError")
 
     # the device LZ engine (SNAPPY_TPU_FLAT=0 SNAPPY_TPU_HOST_PARSE=0)
+    from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import encode_seq as kes
+
+    log(card, f"checkpoint seq: launches of up to "
+              f"{dc._seq_width(kds.resident_rows, dev, 65536)} rows "
+              f"(seq_decode) and {dc._seq_width(kes.resident_rows, dev, 65536)}"
+              f" rows (seq_encode), fewer for a tensor of fewer chunks")
     dc.FLAT, dc.HOST_PARSE = False, False
     blob2, secs, counts["ckpt.seq.save"] = counted(
         card, "checkpoint seq save_pytree", lambda: ck.save_pytree(state))
@@ -952,8 +1129,8 @@ def stream_phase(card, dev, data: bytes, info_blob: bytes):
     import os
     import tempfile
 
-    from snappy_tpu import native
-    from snappy_tpu.errors import ChecksumError, exit_code_for
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.errors import ChecksumError, exit_code_for
     from snappy_tpu_torch import FramedReader, FramedWriter
 
     n = len(data)
@@ -1079,7 +1256,7 @@ def main() -> int:
               f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     # phase 2: builds from the checkout's sources
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import _build
     from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -1095,17 +1272,19 @@ def main() -> int:
 
     crc_err = crc_phase(card, dev, args.seed)
     flat_data = corpus_bytes(16 << 20, args.seed + 1)
+    full = corpus_bytes(max(args.id_mib, args.seq_mib, args.wave_mib,
+                            args.devmatch_mib, args.stream_mib) << 20,
+                        args.seed)
     flat_err, plan, eplan = flat_phase(card, dev, flat_data)
-    seq_dec_err, seq_dec = seq_decode_phase(card, dev, flat_data)
-    seq_enc_err, seq_enc = seq_encode_phase(card, dev, flat_data[1 << 23 :])
+    seq_dec_err, dec64, dec_wide, dec_plain_s = seq_decode_phase(
+        card, dev, flat_data, full)
+    seq_enc_err, enc64, enc_wide, enc_plain_s = seq_encode_phase(
+        card, dev, flat_data[1 << 23 :], full)
     wave_err, wave = wave_phase(card, dev, flat_data[1 << 22 :])
     match_err, match = match_phase(card, dev, flat_data[3 << 22 :])
 
     for k in dc.HOST_FALLBACKS:
         dc.HOST_FALLBACKS[k] = 0
-    full = corpus_bytes(max(args.id_mib, args.seq_mib, args.wave_mib,
-                            args.devmatch_mib, args.stream_mib) << 20,
-                        args.seed)
     rates, counts = main_path(card, dev, full, args.id_mib,
                               args.classify_mib, args.seq_mib, args.wave_mib,
                               args.devmatch_mib)
@@ -1115,8 +1294,11 @@ def main() -> int:
               f"devmatch runs): {launches}; host fallbacks: "
               f"{dict(dc.HOST_FALLBACKS)}")
 
-    times = kernel_times(card, dev, plan, eplan, seq_dec, seq_enc, wave,
-                         match)
+    times = kernel_times(
+        card, dev, plan, eplan,
+        {"seq_decode": dec64, "seq_encode": enc64},
+        {"seq_decode": (dec_wide, dec_plain_s * 1e3),
+         "seq_encode": (enc_wide, enc_plain_s * 1e3)}, wave, match)
 
     ck_rates, ck_counts, info_blob = checkpoint_phase(
         card, dev, args.ckpt_layers, args.seed)
@@ -1132,10 +1314,15 @@ def main() -> int:
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
             "wavegroup": wave_err, "match_cands": match_err}
+    # no single PyTorch call computes any of the six functions (a CRC,
+    # a plan copy, an LZ decode or encode, a wave plan, a candidate
+    # search), so none has a library yardstick
     table = {"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name][0], "plain_ms": times[name][1]}
+         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None}
         for name in KERNELS]}
     log(card, "rates GB/s: " + json.dumps(rates))
     print(json.dumps(table), flush=True)

@@ -1,11 +1,13 @@
 """snappy_tpu_torch: the Snappy codec of ``snappy_tpu`` on PyTorch and CUDA.
 
 A port beside the JAX package, which stays the reference.  It imports
-``torch`` and never ``jax``; from ``snappy_tpu`` it uses only the
-JAX-free modules: ``spec`` (the oracle and the format), ``errors``,
-``native`` (the C++ host codec), ``kernels.encode_np`` (the "np"
-backend), ``bench.corpus``, ``utils`` (``hostmem``, ``progress``,
-``log``) and the file helpers of ``cli.main``.
+``torch`` and never ``jax``, and nothing of ``snappy_tpu``: it keeps its
+own copies of the JAX package's JAX-free modules, ``spec`` (the oracle
+and the format), ``errors``, ``native`` (the C++ host codec, built into
+``snappy_tpu_torch/_build/``), ``kernels/encode_np.py`` (the "np"
+backend), ``bench/corpus.py``, ``utils`` (``hostmem``, ``progress``,
+``log``) and the file helpers of ``cli/main.py``.  A fix to one copy
+is made in both.
 
 Layers:
   device.py   the one device pick (``cuda:0`` when present, else ``cpu``)
@@ -26,7 +28,7 @@ decompress_into / decompress_framed_into (into a caller's numpy buffer),
 FramedReader / FramedWriter and the ``checkpoint`` module.
 """
 
-from snappy_tpu.errors import (
+from snappy_tpu_torch.errors import (
     BadMagicError,
     ChecksumError,
     CorruptError,

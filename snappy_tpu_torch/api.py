@@ -7,9 +7,9 @@ registry of interchangeable backends, selectable per call
 
   "torch"   the port's device codec (``runtime.device_codec``), in the
             role that "jnp" plays in the JAX package; the default
-  "native"  the shared C++ host codec (``snappy_tpu.native``)
-  "np"      ``snappy_tpu.kernels.encode_np`` and the oracle's decoder
-  "oracle"  the pure-Python reference (``snappy_tpu.spec``)
+  "native"  the port's copy of the C++ host codec (``native``)
+  "np"      ``kernels.encode_np`` and the oracle's decoder
+  "oracle"  the pure-Python reference (``spec``)
   "auto"    the JAX package's preference: "native", else "oracle"
 
 The registry is the port's own: ``snappy_tpu.api`` registers "jnp" and
@@ -54,7 +54,7 @@ def available_backends() -> list[str]:
 
 def _ensure_default_backends() -> None:
     if "oracle" not in _BACKENDS:
-        from snappy_tpu.spec import framing, reference
+        from snappy_tpu_torch.spec import framing, reference
 
         register_backend(
             "oracle",
@@ -64,8 +64,8 @@ def _ensure_default_backends() -> None:
             decompress_framed=framing.decompress_framed,
         )
     if "np" not in _BACKENDS:
-        from snappy_tpu.kernels import encode_np
-        from snappy_tpu.spec import framing, reference
+        from snappy_tpu_torch.kernels import encode_np
+        from snappy_tpu_torch.spec import framing, reference
 
         register_backend(
             "np",
@@ -75,7 +75,7 @@ def _ensure_default_backends() -> None:
             decompress_framed=framing.decompress_framed,
         )
     if "native" not in _BACKENDS:
-        from snappy_tpu import native
+        from snappy_tpu_torch import native
 
         if native.available():
             register_backend(
@@ -159,7 +159,7 @@ def decompress_into(data: bytes, out) -> int:
     buffer; returns the decoded length.  The native decoder writes in
     place; without it, ``SNAPPY_TPU_BACKEND`` (else "auto") decodes and
     the bytes are copied in."""
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
 
     if native.available():
         return native.decompress_into(data, out)
@@ -170,7 +170,7 @@ def decompress_framed_into(data: bytes, out,
                            verify_checksums: bool = True) -> int:
     """Decompress a framed (.sz) stream into a caller-owned uint8 numpy
     buffer; returns the decoded length (see decompress_into)."""
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
 
     if native.available():
         return native.decompress_framed_into(

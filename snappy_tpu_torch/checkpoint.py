@@ -35,8 +35,8 @@ import struct
 import numpy as np
 import torch
 
-from snappy_tpu.errors import CorruptError
-from snappy_tpu.spec.format import STREAM_ID_CHUNK
+from snappy_tpu_torch.errors import CorruptError
+from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK
 from snappy_tpu_torch.device import resolve
 from snappy_tpu_torch.runtime.device_codec import (
     compress_framed_from_device,

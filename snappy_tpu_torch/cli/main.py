@@ -7,7 +7,8 @@ Codec calls go through the port's registry (:mod:`snappy_tpu_torch.api`,
 default backend "torch"); files above ``SNAPPY_TPU_STREAM_THRESHOLD``
 bytes and pipes stream through the port's ``FramedReader`` /
 ``FramedWriter`` in slabs.  Output files are written atomically (tmp,
-fsync, rename); exit codes follow ``snappy_tpu.errors.exit_code_for``.
+fsync, rename); exit codes follow ``snappy_tpu_torch.errors.exit_code_for``
+(the same codes as ``snappy_tpu``'s).
 ``info`` reads a checkpoint manifest with the port's parser.
 
     python -m snappy_tpu_torch compress big.bin --backend torch
@@ -23,13 +24,8 @@ import sys
 import tempfile
 import time
 
-from snappy_tpu.cli.main import (
-    _detect_format,
-    _emit,
-    _make_meter,
-    _read,
-)
-from snappy_tpu.errors import CorruptError, SnappyError, exit_code_for
+from snappy_tpu_torch.errors import CorruptError, SnappyError, exit_code_for
+from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK
 
 PROG = "tpusnappy-torch"
 # Files above this size stream through FramedWriter/FramedReader in
@@ -37,6 +33,52 @@ PROG = "tpusnappy-torch"
 STREAM_THRESHOLD = int(os.environ.get("SNAPPY_TPU_STREAM_THRESHOLD",
                                       str(64 << 20)))
 _SLAB = 16 << 20
+
+
+# _read, _atomic_write, _emit, _detect_format and _make_meter are copies
+# of snappy_tpu/cli/main.py's helpers
+
+
+def _read(path: str) -> bytes:
+    if path == "-":
+        return sys.stdin.buffer.read()
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _atomic_write(path: str, data: bytes) -> None:
+    """tmp + fsync + rename in the destination directory (the reference's
+    helpers.AtomicWriteFile pattern)."""
+    fd, tmp = _tmp_beside(path)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        _unlink_quietly(tmp)
+        raise
+
+
+def _emit(path: str | None, data: bytes) -> None:
+    if path is None or path == "-":
+        sys.stdout.buffer.write(data)
+        sys.stdout.buffer.flush()
+    else:
+        _atomic_write(path, data)
+
+
+def _detect_format(data: bytes) -> str:
+    return "framed" if data.startswith(STREAM_ID_CHUNK) else "raw"
+
+
+def _make_meter(args):
+    from snappy_tpu_torch.utils.progress import NullMeter, default_meter
+
+    if getattr(args, "quiet", False):
+        return NullMeter()
+    return default_meter()
 
 
 def _say(msg: str) -> None:
@@ -189,7 +231,6 @@ class _Chained(io.RawIOBase):
 def _pipe_decompress(args) -> int:
     """stdin -> stdout in slabs (bounded memory on pipes for framed
     input; a raw stream needs the whole stream and is read at once)."""
-    from snappy_tpu.spec.format import STREAM_ID_CHUNK
     from snappy_tpu_torch import api
     from snappy_tpu_torch.runtime.stream import FramedReader
 
@@ -339,12 +380,11 @@ def cmd_verify(args) -> int:
 
 def cmd_info(args) -> int:
     """Stream structure report, with a checkpoint's manifest."""
-    from snappy_tpu.spec.format import (
+    from snappy_tpu_torch.spec.format import (
         CHUNK_COMPRESSED,
         CHUNK_PADDING,
         CHUNK_STREAM_ID,
         CHUNK_UNCOMPRESSED,
-        STREAM_ID_CHUNK,
         read_uvarint,
     )
     from snappy_tpu_torch.checkpoint import _split_meta
@@ -392,7 +432,7 @@ def cmd_info(args) -> int:
 
 
 def main(argv=None) -> int:
-    from snappy_tpu.utils.hostmem import tune_allocator
+    from snappy_tpu_torch.utils.hostmem import tune_allocator
 
     tune_allocator()
     p = argparse.ArgumentParser(
@@ -435,7 +475,7 @@ def main(argv=None) -> int:
     try:
         return args.fn(args)
     except SnappyError as e:
-        from snappy_tpu.utils.log import log_error
+        from snappy_tpu_torch.utils.log import log_error
 
         log_error(e, context=args.cmd)
         _say(str(e))

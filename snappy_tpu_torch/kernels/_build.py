@@ -10,8 +10,8 @@ a plain C interface, loaded with ``ctypes``:
          -o snappy_tpu_torch/_build/libsnappy_cuda.so *.o
 
 The library is rebuilt only when the sources' sha256 changes (the
-verify-before-activate rule of ``snappy_tpu/native``).  Unlike
-``snappy_tpu.native._build``, which returns None, a failed build raises
+verify-before-activate rule of ``snappy_tpu_torch/native``).  Unlike
+``native._build``, which returns None, a failed build raises
 with nvcc's output: a wrapper handed a CUDA tensor has no other way to
 run.
 
@@ -22,6 +22,7 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -29,6 +30,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -127,6 +130,10 @@ def _declare(lib) -> None:
     lib.snc_seq_decode.argtypes = [p, i64, i32, p, p, p, p, i32, p, i32, p]
     lib.snc_seq_encode.restype = ctypes.c_int
     lib.snc_seq_encode.argtypes = [p, i64, i32, p, p, i32, p, p, i32, p]
+    lib.snc_seq_decode_blocks_per_sm.restype = ctypes.c_int
+    lib.snc_seq_decode_blocks_per_sm.argtypes = [i32, p]
+    lib.snc_seq_encode_blocks_per_sm.restype = ctypes.c_int
+    lib.snc_seq_encode_blocks_per_sm.argtypes = [i32, p]
     lib.snc_wavegroup.restype = ctypes.c_int
     lib.snc_wavegroup.argtypes = [p, i64, i32, p, i32, p, p, i32, i32, p]
     lib.snc_match_cands.restype = ctypes.c_int
@@ -147,6 +154,28 @@ def lib():
             _declare(loaded)
             _lib = loaded
         return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(entry: str, index: int, width: int) -> int:
+    dev = torch.device("cuda", index)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        check(getattr(lib(), entry)(width, ctypes.addressof(n)), entry)
+    return torch.cuda.get_device_properties(dev).multi_processor_count * n.value
+
+
+def resident_rows(entry: str, device, width: int) -> int:
+    """Rows of a one-block-per-row kernel that ``device`` holds in flight
+    at once for rows of ``width`` bytes: SMs x the blocks one SM holds,
+    which the C entry point ``entry`` reports
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the kernel's
+    shared memory).  A launch this wide keeps every SM full."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"resident_rows needs a CUDA device, got {device}")
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _resident(entry, index, width)
 
 
 def check(code: int, what: str) -> None:

@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from snappy_tpu.spec.crc32c import _TABLE, crc32c as crc_oracle, crc_shift_matrix
+from snappy_tpu_torch.spec.crc32c import _TABLE, crc32c as crc_oracle, crc_shift_matrix
 
 SEG = 256  # segment length in bytes
 NSEG = 256  # segments per 64 KiB chunk
@@ -35,7 +35,7 @@ launches = 0
 def _constants():
     """(B_seg[2048, 32], P_comb[NSEG*32, 32], const, minv[17, 32, 32],
     zero_crc[CHUNK+1]) of the GF(2) matrix form, rebuilt from
-    snappy_tpu.spec.crc32c exactly as crc32c_jnp._constants does."""
+    spec.crc32c exactly as snappy_tpu's crc32c_jnp._constants does."""
     z = crc_oracle(b"\x00" * SEG)
     seg_m = np.zeros((SEG * 8, 32), dtype=np.uint8)
     for i in range(SEG):

@@ -22,17 +22,26 @@ otherwise).  The plain version raises ValueError when they do not hold;
 the kernel stays inside its rows (bytes past a row read as zero, writes
 past ``out_max`` are dropped).
 
-On a CUDA tensor the wrapper launches ``csrc/seq_decode.cu`` (one warp
-per block); on a CPU tensor it runs the plain version, a serial walk
-over elements whose literals and copies are tensor slice copies.  There
-is no other switch.  Unlike the Pallas wrapper, any ``B`` and any
-widths are taken: no multiple-of-8 batch, no 128-byte rows.
+On a CUDA tensor the wrapper launches ``csrc/seq_decode.cu`` (a parser
+warp and a writer warp per block); on a CPU tensor it runs the plain
+version, a serial walk over elements whose literals and copies are
+tensor slice copies.  There is no other switch.  Unlike the Pallas
+wrapper, any ``B`` and any widths are taken: no multiple-of-8 batch, no
+128-byte rows.  ``resident_rows`` is the launch width that fills the
+card.
+
+``decode_rows_model`` is the kernel's decomposition on the host, for the
+tests: ``parse_records`` (the parser warp: 32 speculative headers a
+window, the chain of starts, the checks of all starts at once) and
+``execute_records`` (the writer warp).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+WINDOW = 32  # bytes the parser warp decodes speculatively at once
 
 ERR_NONE = 0
 ERR_LITERAL = 1
@@ -49,6 +58,14 @@ ERR_MESSAGES = {
 
 # kernel launches made by decode_blocks_seq (one per CUDA call)
 launches = 0
+
+
+def resident_rows(device, out_max: int) -> int:
+    """Rows the card holds in flight at once for ``out_max``-byte rows (SMs x
+    resident blocks per SM): the seq engine's launch width on a card."""
+    from snappy_tpu_torch.kernels import _build
+
+    return _build.resident_rows("snc_seq_decode_blocks_per_sm", device, out_max)
 
 
 def stage_decode(comp, starts, clens, dlens, device="cpu"):
@@ -184,4 +201,119 @@ def decode_blocks_seq(comp, starts, clens, dlens, out_max: int):
             err.data_ptr(), nb, stream)
     _build.check(rc, "seq_decode")
     launches += 1
+    return out, err
+
+
+# ---------------------------------------------------------------------
+# the kernel's decomposition on the host (tests only)
+
+
+def _speculate(hb: bytes, q: int):
+    """The element a header at q would be: (tag, hdr, ln, off, adv), adv
+    the bytes it spans in the stream."""
+    b0, b1, b2, b3, b4 = hb[q : q + 5]
+    tag, x = b0 & 3, b0 >> 2
+    if tag == 0:
+        hdr = 1 if x < 60 else x - 58
+        raw = (x, b1, b1 | b2 << 8, b1 | b2 << 8 | b3 << 16,
+               b1 | b2 << 8 | b3 << 16 | b4 << 24)[max(0, x - 59)]
+        ln = _i32(raw + 1)
+        return tag, hdr, ln, 0, hdr + ln
+    hdr = (2, 3, 5)[tag - 1]
+    ln = 4 + (x & 7) if tag == 1 else 1 + x
+    if tag == 1:
+        off = ((b0 & 0xE0) << 3) | b1
+    elif tag == 2:
+        off = b1 | b2 << 8
+    else:
+        off = _i32(b1 | b2 << 8 | b3 << 16 | b4 << 24)
+    return tag, hdr, ln, off, hdr
+
+
+def _fails(el, sq: int, d: int, clen: int, dlen: int) -> bool:
+    """_step_one's checks of element ``el`` at stream position sq, d
+    bytes decoded before it (wrapping int32 subtractions)."""
+    tag, hdr, ln, off, _ = el
+    room = _i32(clen - sq)
+    if tag == 0:
+        return (hdr > room or ln <= 0 or ln > _i32(dlen - d)
+                or ln > _i32(room - hdr))
+    return hdr > room or ln <= 0 or ln > _i32(dlen - d) or off <= 0 or off > d
+
+
+def parse_records(hb: bytes, s: int, clen: int, dlen: int):
+    """The parser warp: the stream parsed WINDOW bytes at a time.  Each
+    window decodes a header speculatively at every position, follows
+    the chain of starts from the first (stopping at the window's end or
+    at clen), checks every start with the d the chain gives it, and
+    stops the walk at the first failing start.  ``hb`` is the row's
+    bytes with zeros past them.  Returns (records, s, d, err); a record
+    is (d, ln, a, kind): kind 0 a literal of row bytes [a, a + ln),
+    kind 1 a copy of offset a."""
+    hb = hb + bytes(WINDOW + 5)
+    records = []
+    d, e = 0, ERR_NONE
+    while s < clen:
+        lanes = [_speculate(hb, s + i) for i in range(WINDOW)]
+        nxt = [i + el[4] if el[4] >= 1 and i + el[4] < WINDOW else WINDOW
+               for i, el in enumerate(lanes)]
+        chain, p, dd = [], 0, d
+        while True:
+            chain.append((p, dd))
+            dd = _i32(dd + lanes[p][2])
+            if nxt[p] >= WINDOW or s + nxt[p] >= clen:
+                break
+            p = nxt[p]
+        bad = next(((q, dq) for q, dq in chain
+                    if _fails(lanes[q], s + q, dq, clen, dlen)), None)
+        for q, dq in chain:
+            if bad is not None and q == bad[0]:
+                break
+            tag, hdr, ln, off, _ = lanes[q]
+            records.append((dq, ln, s + q + hdr if tag == 0 else off,
+                            0 if tag == 0 else 1))
+        if bad is not None:
+            e = ERR_LITERAL if lanes[bad[0]][0] == 0 else ERR_COPY
+            s, d = s + bad[0], bad[1]
+            break
+        s, d = s + p + lanes[p][4], dd
+    if e == ERR_NONE and d != dlen:
+        e = ERR_DST_SHORT
+    if e == ERR_NONE and s != clen:
+        e = ERR_SRC_TRAIL
+    return records, s, d, e
+
+
+def execute_records(records, row: bytes, out: np.ndarray) -> None:
+    """The writer warp: the records in order into ``out`` (uint8
+    [out_max]), literal bytes past ``row`` read as zero, writes past
+    out_max dropped, a copy as out[d + i] = out[d - off + i % off]."""
+    out_max = out.shape[0]
+    src = np.frombuffer(row, np.uint8)
+    for d, ln, a, kind in records:
+        n_w = max(0, min(ln, out_max - d))
+        i = np.arange(n_w)
+        if kind == 0:
+            j = a + i
+            out[d : d + n_w] = np.where(j < len(src),
+                                        src[np.minimum(j, len(src) - 1)]
+                                        if len(src) else 0, 0)
+        else:
+            si = d - a + (i if a >= ln else i % a)
+            out[d : d + n_w] = np.where(si < out_max,
+                                        out[np.minimum(si, out_max - 1)], 0)
+
+
+def decode_rows_model(comp: np.ndarray, starts, clens, dlens, out_max: int):
+    """decode_blocks_seq's result computed as the kernel decomposes it:
+    parse_records then execute_records per row.  Numpy in, numpy out."""
+    nb, cmax = comp.shape
+    out = np.zeros((nb, out_max), np.uint8)
+    err = np.zeros(nb, np.int32)
+    for b in range(nb):
+        lim = max(0, min(int(clens[b]), cmax))
+        row = comp[b, :lim].tobytes()
+        records, _s, _d, err[b] = parse_records(row, int(starts[b]),
+                                                int(clens[b]), int(dlens[b]))
+        execute_records(records, row, out[b])
     return out, err

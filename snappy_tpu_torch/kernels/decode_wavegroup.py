@@ -171,8 +171,8 @@ def stage_waves(streams, g_cap: int = WAVE_G_CAP, device="cpu"):
     batch's largest plan, rounded up to 8 groups.  Raises on a corrupt
     stream.  The native calls release the GIL, so batches stage in
     parallel from a thread pool."""
-    from snappy_tpu import native
-    from snappy_tpu.spec.format import read_uvarint
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.spec.format import read_uvarint
 
     nb = len(streams)
     cmax = max([len(s) for s in streams] + [1])

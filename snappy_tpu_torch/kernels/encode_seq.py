@@ -17,10 +17,17 @@ arithmetic, ``s_limit = n - INPUT_MARGIN``, one literal for blocks under
 ``MIN_NON_LITERAL_BLOCK_SIZE``, the skip heuristic, the double insert
 after each copy, and the reference's copy chopping.
 
-On a CUDA tensor the wrapper launches ``csrc/seq_encode.cu`` (one warp
-per block); on a CPU tensor it runs the plain version, a transcription
-of the reference onto tensors.  There is no other switch.  Any ``B``
-and any width are taken.
+On a CUDA tensor the wrapper launches ``csrc/seq_encode.cu`` (a matcher
+warp and an emitter warp per block); on a CPU tensor it runs the plain
+version, a transcription of the reference onto tensors.  There is no
+other switch.  Any ``B`` and any width are taken.  ``resident_rows`` is
+the launch width that fills the card.
+
+``encode_block_model`` is the kernel's decomposition on the host, for
+the tests: ``match_records`` (the matcher warp: the reference's control
+flow, each table slot read before the access writes it, literal runs and
+copies as records) and ``emit_records`` (the emitter warp), the records
+handed over in ring slots of ``RECS``.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snappy_tpu.spec.format import (
+from snappy_tpu_torch.spec.format import (
     HASH_MUL,
     INPUT_MARGIN,
     MAX_BLOCK_SIZE,
@@ -42,6 +49,14 @@ ERR_LEN = 1  # a block length outside [0, min(bmax, 65536)]
 
 # kernel launches made by encode_blocks_seq (one per CUDA call)
 launches = 0
+
+
+def resident_rows(device, bmax: int) -> int:
+    """Rows the card holds in flight at once for ``bmax``-byte blocks (SMs x
+    resident blocks per SM): the seq engine's launch width on a card."""
+    from snappy_tpu_torch.kernels import _build
+
+    return _build.resident_rows("snc_seq_encode_blocks_per_sm", device, bmax)
 
 
 def comp_width(bmax: int) -> int:
@@ -246,3 +261,85 @@ def encode_blocks_seq(blocks, lens):
     _build.check(rc, "seq_encode")
     launches += 1
     return comp, clens, err
+
+
+# ---------------------------------------------------------------------
+# the kernel's decomposition on the host (tests only)
+
+RECS = 32  # records a ring slot of the kernel carries
+
+
+def _word(b: bytes, i: int) -> int:
+    return int.from_bytes(b[i : i + 4], "little")
+
+
+def match_records(block: bytes) -> list:
+    """The matcher warp: spec.reference.encode_block's decisions on
+    ``block`` as records (a, length, is_copy): a literal run of
+    ``block[a : a + length]`` or a copy of ``length`` bytes at offset a.
+    Each access reads its slot before it writes (the double insert reads
+    the second slot before either write)."""
+    n = len(block)
+    if n < MIN_NON_LITERAL_BLOCK_SIZE:
+        return [(0, n, 0)] if n else []
+    shift, size = table_shift_and_size(n)
+    src = block + bytes(16)
+
+    def h(i):
+        return ((_word(src, i) * HASH_MUL) & 0xFFFFFFFF) >> shift
+
+    table = [0] * size
+    recs = []
+    s_limit = n - INPUT_MARGIN
+    next_emit, s = 0, 1
+    while True:
+        skip, next_s = 32, s
+        while True:
+            s = next_s
+            next_s, skip = s + (skip >> 5), skip + (skip >> 5)
+            if next_s > s_limit:
+                return recs + [(next_emit, n - next_emit, 0)]
+            hs = h(s)
+            cand, table[hs] = table[hs], s
+            if _word(src, s) == _word(src, cand):
+                break
+        recs.append((next_emit, s - next_emit, 0))
+        while True:
+            base = s
+            s += 4
+            while s < n and src[cand + s - base] == src[s]:
+                s += 1
+            recs.append((base - cand, s - base, 1))
+            next_emit = s
+            if s >= s_limit:
+                if next_emit < n:
+                    recs.append((next_emit, n - next_emit, 0))
+                return recs
+            h1, h2 = h(s - 1), h(s)
+            cand = s - 1 if h1 == h2 else table[h2]
+            table[h1], table[h2] = s - 1, s
+            if _word(src, s) != _word(src, cand):
+                s += 1
+                break
+
+
+def emit_records(records, block: bytes) -> bytes:
+    """The emitter warp: the records in order as element bytes."""
+    from snappy_tpu_torch.spec.reference import emit_copy, emit_literal
+
+    out = bytearray()
+    for a, length, is_copy in records:
+        if is_copy:
+            emit_copy(out, a, length)
+        else:
+            emit_literal(out, block[a : a + length])
+    return bytes(out)
+
+
+def encode_block_model(block: bytes) -> bytes:
+    """spec.reference.encode_block of ``block`` computed as the kernel
+    decomposes it: match_records, handed over in slots of RECS records,
+    each slot emitted in order by emit_records."""
+    recs = match_records(block)
+    return b"".join(emit_records(recs[i : i + RECS], block)
+                    for i in range(0, len(recs), RECS))

@@ -1,7 +1,7 @@
 """Device match finding: the CUDA kernel and its plain version.
 
 Counterpart of ``snappy_tpu/kernels/pallas_match.py``; the contract is
-``snappy_tpu.kernels.match_np.find_candidates``.  For every position
+``snappy_tpu/kernels/match_np.py:find_candidates``.  For every position
 ``p`` of a block, with ``v[p]`` the little-endian 4-byte word at ``p``,
 the candidates are the nearest previous and the first position ``q <
 p`` with ``v[q] == v[p]``, packed as the int32 bit pattern of ``near |
@@ -36,7 +36,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from snappy_tpu.kernels.match_np import BIG, BMAX, NONE16
+# the constants of snappy_tpu/kernels/match_np.py
+BMAX = 65536     # block slots the kernel sorts (pow2, = max block)
+NONE16 = 0xFFFF  # packed "no candidate" sentinel
+BIG = 1 << 20    # pos key for invalid (tail) slots
 
 __all__ = ["find_candidates", "find_candidates_plain",
            "find_candidates_device", "stage_words", "scatter_home"]

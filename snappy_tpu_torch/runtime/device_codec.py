@@ -9,9 +9,9 @@ engine, chosen by ``FLAT_MODE``; ``SNAPPY_TPU_FLAT=0`` with
 (``decode_pretagged``), which is not ported: framed decode raises
 SnappyError there.  Encode under ``FLAT=0`` ignores ``HOST_PARSE``.
 
-The shared native library (``snappy_tpu.native``) does the host's part
-of the flat engines: the threaded LZ walk, the matcher and the framed
-assembly.  Their device part depends on ``FLAT_MODE``:
+The port's native library (``snappy_tpu_torch.native``) does the host's
+part of the flat engines: the threaded LZ walk, the matcher and the
+framed assembly.  Their device part depends on ``FLAT_MODE``:
 
   "id" (default)  decode: the native walk decodes each chunk straight
                   into a 64 KiB row of a 520-row staging panel; the
@@ -51,8 +51,8 @@ import os
 import numpy as np
 import torch
 
-from snappy_tpu import native
-from snappy_tpu.errors import (
+from snappy_tpu_torch import native
+from snappy_tpu_torch.errors import (
     BadMagicError,
     ChecksumError,
     CorruptError,
@@ -60,7 +60,7 @@ from snappy_tpu.errors import (
     TooLargeError,
     UnsupportedError,
 )
-from snappy_tpu.spec.format import (
+from snappy_tpu_torch.spec.format import (
     CHUNK_COMPRESSED,
     CHUNK_PADDING,
     CHUNK_STREAM_ID,
@@ -84,6 +84,8 @@ from snappy_tpu_torch.kernels.decode_flat import (
     decode_blocks_flat,
     rows_b_for,
 )
+from snappy_tpu_torch.kernels import decode_seq as _dseq
+from snappy_tpu_torch.kernels import encode_seq as _eseq
 from snappy_tpu_torch.kernels.decode_seq import ERR_MESSAGES, decode_blocks_seq
 from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
 
@@ -111,13 +113,22 @@ HOST_FALLBACKS = {"plan_overflow": 0, "oversize_payload": 0, "far_offset": 0}
 def _native():
     if not native.available():
         raise SnappyError(
-            "the native host codec (snappy_tpu.native) is unavailable; "
+            "the native host codec (snappy_tpu_torch.native) is unavailable; "
             "snappy_tpu_torch needs it for staging and assembly")
     return native
 
 
 def _threads() -> int:
     return min(4, os.cpu_count() or 1)
+
+
+def _seq_width(resident, device, width: int) -> int:
+    """Rows per launch of a device LZ kernel: BATCH, and on a card at
+    least the rows it holds in flight (``resident(device, width)``), so
+    that a launch fills every SM.  The id, classify, wave and devmatch
+    engines keep BATCH."""
+    return max(BATCH, resident(device, width)) if device.type == "cuda" \
+        else BATCH
 
 
 def _bucket_cmax(kmax: int) -> int:
@@ -544,15 +555,16 @@ def _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
     """Device LZ engine, host output: the payloads go up, the sequential
     kernel decodes and CRCs them, the decoded rows come back.  Batch k+1
     is staged while batch k runs."""
-    sets = _seq_dec_sets(device, min(BATCH, len(comp_idx)), host_out=True)
+    step = _seq_width(_dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
+    sets = _seq_dec_sets(device, min(step, len(comp_idx)), host_out=True)
 
     def dispatch(k, base):
-        grp = [chunks[i] for i in comp_idx[base : base + BATCH]]
+        grp = [chunks[i] for i in comp_idx[base : base + step]]
         hs = sets[k % _NSETS]
         _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True)
-        return comp_idx[base : base + BATCH], grp, hs
+        return comp_idx[base : base + step], grp, hs
 
-    for idx, grp, hs in _one_behind(range(0, len(comp_idx), BATCH), dispatch):
+    for idx, grp, hs in _one_behind(range(0, len(comp_idx), step), dispatch):
         hs.wait()
         _check_seq(grp, hs, use_dev_crc)
         res = hs.np["res"]
@@ -623,12 +635,14 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     out = torch.empty(total, dtype=torch.uint8, device=device)
     seq = engine == "seq"
     if seq:
-        sets = _seq_dec_sets(device, min(BATCH, len(chunks)), host_out=False)
+        step = _seq_width(_dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
+        sets = _seq_dec_sets(device, min(step, len(chunks)), host_out=False)
     else:
+        step = BATCH
         sets = _id_sets(device)
 
     def dispatch(k, base):
-        grp = chunks[base : base + BATCH]
+        grp = chunks[base : base + step]
         hs = sets[k % _NSETS]
         if seq:
             rows = _dispatch_seq(src_arr, grp, hs, device, verify_checksums,
@@ -647,7 +661,7 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
                 rows[full, : nb - full * _CRC_CHUNK])
         return grp, hs
 
-    for grp, hs in _one_behind(range(0, len(chunks), BATCH), dispatch):
+    for grp, hs in _one_behind(range(0, len(chunks), step), dispatch):
         hs.wait()
         if seq:
             _check_seq(grp, hs, verify_checksums)
@@ -909,7 +923,8 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
     n_chunks = -(-n // cs)
     if n_chunks == 0:
         return
-    rows_n = min(BATCH, n_chunks)
+    step = _seq_width(_eseq.resident_rows, device, cs)
+    rows_n = min(step, n_chunks)
     cap = comp_width(cs)
     shapes = dict(lens=((rows_n,), torch.int32), clens=((rows_n,), torch.int32),
                   crc=((rows_n,), torch.int64),
@@ -949,7 +964,7 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
         b["kmax"] = kmax
 
     def dispatch(k, base):
-        cnt = min(BATCH, n_chunks - base)
+        cnt = min(step, n_chunks - base)
         lo = base * cs
         nb = min(n, lo + cnt * cs) - lo
         hs = sets[k % _NSETS]
@@ -971,7 +986,7 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
         pending.append(b)
         return b
 
-    for b in _one_behind(range(0, n_chunks, BATCH), dispatch):
+    for b in _one_behind(range(0, n_chunks, step), dispatch):
         fetch(b)  # the last batch: no later dispatch queued its fetch
         hs = b["hs"]
         hs.wait()

@@ -22,13 +22,13 @@ from __future__ import annotations
 
 import io
 
-from snappy_tpu.errors import (
+from snappy_tpu_torch.errors import (
     BadMagicError,
     ChecksumError,
     CorruptError,
     UnsupportedError,
 )
-from snappy_tpu.spec.format import (
+from snappy_tpu_torch.spec.format import (
     CHUNK_COMPRESSED,
     CHUNK_PADDING,
     CHUNK_STREAM_ID,
@@ -46,11 +46,11 @@ __all__ = ["FramedWriter", "FramedReader"]
 
 
 def _crc(data: bytes) -> int:
-    from snappy_tpu import native
+    from snappy_tpu_torch import native
 
     if native.available():
         return native.crc32c(data)
-    from snappy_tpu.spec.crc32c import crc32c
+    from snappy_tpu_torch.spec.crc32c import crc32c
 
     return crc32c(data)
 
@@ -231,7 +231,7 @@ class FramedReader(io.RawIOBase):
     def _fill(self, want_chunks: int) -> bool:
         """Decode up to want_chunks records into _pending; False at a
         clean end with nothing decoded."""
-        from snappy_tpu import native
+        from snappy_tpu_torch import native
 
         want_chunks = max(1, min(want_chunks, self._buffer_chunks))
         records = []

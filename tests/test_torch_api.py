@@ -11,8 +11,9 @@ import pytest
 
 import snappy_tpu_torch
 from snappy_tpu import api as japi
-from snappy_tpu import native
-from snappy_tpu.errors import SnappyError
+from snappy_tpu import native as jnative
+from snappy_tpu_torch import native
+from snappy_tpu_torch.errors import SnappyError
 from snappy_tpu.runtime import device_codec as jdc
 from snappy_tpu_torch import api
 from snappy_tpu_torch.runtime import device_codec as dc
@@ -63,7 +64,7 @@ def test_default_backend_is_torch(no_env_backend, rng):
     assert isinstance(fn, functools.partial)
     assert fn.func is dc.compress_framed and fn.keywords == {"device": "cpu"}
     assert api._resolve("compress_framed", "auto") is native.compress_framed
-    assert japi._resolve("compress_framed", None) is native.compress_framed
+    assert japi._resolve("compress_framed", None) is jnative.compress_framed
     data = _data(rng)
     assert api.compress_framed(data) == native.compress_framed(data)
     # device= reaches "torch" only: a device the port refuses raises

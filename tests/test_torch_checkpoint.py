@@ -16,7 +16,8 @@ import torch
 
 from snappy_tpu import checkpoint as jck
 from snappy_tpu import native
-from snappy_tpu.errors import ChecksumError, CorruptError
+from snappy_tpu import errors as jerr
+from snappy_tpu_torch.errors import ChecksumError, CorruptError
 from snappy_tpu.runtime import device_codec as jdc
 from snappy_tpu.spec import framing
 from snappy_tpu.spec.format import STREAM_ID_CHUNK
@@ -256,11 +257,11 @@ def _with_manifest(blob: bytes, payload: bytes) -> bytes:
 
 # malformed manifests, and what the JAX package raises for each
 MANIFESTS = [
-    (b"not json", CorruptError),
-    (b"\xff\xfe", CorruptError),
+    (b"not json", jerr.CorruptError),
+    (b"\xff\xfe", jerr.CorruptError),
     (b"[1, 2]", AttributeError),
     (json.dumps({"dtype": "float32", "shape": [4], "v": 2}).encode(),
-     CorruptError),
+     jerr.CorruptError),
     (json.dumps({"dtype": "float99", "shape": [4], "v": 1}).encode(),
      TypeError),
     (json.dumps({"dtype": "float32", "shape": 4, "v": 1}).encode(),

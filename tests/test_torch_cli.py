@@ -18,7 +18,7 @@ import torch
 
 from snappy_tpu import native
 from snappy_tpu.cli.main import main as jax_main
-from snappy_tpu.errors import ChecksumError, exit_code_for
+from snappy_tpu_torch.errors import ChecksumError, exit_code_for
 from snappy_tpu.spec import framing
 from snappy_tpu_torch.cli import main as cli_main
 from snappy_tpu_torch.cli.main import main

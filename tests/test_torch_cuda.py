@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from snappy_tpu import native
-from snappy_tpu.bench.corpus import make_corpus
+from snappy_tpu_torch import native
+from snappy_tpu_torch.bench.corpus import make_corpus
 from snappy_tpu.kernels import match_np
 from snappy_tpu_torch.kernels import crc32c as kc
-from snappy_tpu.spec.format import put_uvarint, read_uvarint
+from snappy_tpu_torch.spec.format import put_uvarint, read_uvarint
 from snappy_tpu_torch.kernels import decode_flat as kf
 from snappy_tpu_torch.kernels import decode_seq as kds
 from snappy_tpu_torch.kernels import decode_wavegroup as kw
@@ -199,6 +199,78 @@ def test_seq_encode_kernel_matches_plain(cuda_device, rng):
     pcomp, pclens, perr = kes.encode_blocks_seq_plain(b, l)
     assert torch.equal(comp, pcomp) and torch.equal(clens, pclens)
     assert torch.equal(err, perr) and err.tolist()[-1] == kes.ERR_LEN
+    comp_h, clens_h = comp.cpu().numpy(), clens.cpu().numpy()
+    for i, s in enumerate(samples):
+        nat = native.compress(s)
+        assert comp_h[i, : clens_h[i]].tobytes() == nat[read_uvarint(nat, 0)[1] :]
+
+
+def _wide_rows(n_rows, distinct):
+    """Row indices of a launch n_rows wide that cycles over the distinct
+    rows (every kind of row lands on many SMs and in many batches)."""
+    return np.arange(n_rows) % distinct
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_seq_decode_kernel_at_engine_width(cuda_device, rng, extra):
+    """The redesigned decoder at the seq engine's launch width (the
+    card's resident rows, > 132) and at a width that is not a multiple
+    of it: corpus rows, hostile rows (every error code, the int32 wrap
+    rows), an empty stream (a stored chunk's row), incompressible and
+    all-zero chunks.  The plain version runs once per distinct row; the
+    wide launch must give each row the same bytes and code."""
+    resident = kds.resident_rows(cuda_device, 65536)
+    assert resident > 132
+    width = resident + extra * (resident // 3 + 7)
+    data = _corpus(21, 24 << 16)
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(24)]
+    blocks += [bytes(65536), rng.bytes(65536), b""]
+    streams = [native.compress(b) for b in blocks] + _BAD_STREAMS + [b"\x00"]
+    comp, starts, clens, dlens = _seq_rows(streams, 66560)
+    starts[-1] = clens[-1] + 3  # ERR_SRC_TRAIL
+    idx = _wide_rows(width, len(streams))
+    c, st, cl, dl = kds.stage_decode(comp[idx], starts[idx], clens[idx],
+                                     dlens[idx], cuda_device)
+    out, err = kds.decode_blocks_seq(c, st, cl, dl, 65536)
+    pout, perr = kds.decode_blocks_seq_plain(
+        *kds.stage_decode(comp, starts, clens, dlens, cuda_device), 65536)
+    torch.cuda.synchronize()
+    sel = torch.from_numpy(idx).to(cuda_device)
+    assert torch.equal(err, perr[sel]) and torch.equal(out, pout[sel])
+    assert set(err.tolist()) == {0, 1, 2, 3, 4}
+    out_h = out.cpu().numpy()
+    for r in range(len(blocks)):
+        assert out_h[r, : len(blocks[r])].tobytes() == blocks[r]
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_seq_encode_kernel_at_engine_width(cuda_device, rng, extra):
+    """The redesigned encoder at the seq engine's launch width and at a
+    width that is not a multiple of it: corpus rows, short edge rows,
+    stored-size (incompressible), all-zero and run-length chunks (a long
+    record stream through the matcher's ring), and an out-of-range
+    length (ERR_LEN)."""
+    resident = kes.resident_rows(cuda_device, 65536)
+    assert resident > 132
+    width = resident + extra * (resident // 3 + 7)
+    data = _corpus(22, 24 << 16)
+    samples = [data[i << 16 : (i + 1) << 16] for i in range(24)]
+    samples += [b"", b"x" * 17, b"x" * 18, b"y" * 50, bytes(65536),
+                b"ab" * 32768, rng.bytes(65536), rng.bytes(1000) + b"z" * 3000,
+                (rng.bytes(40) * 1700)[:65536]]
+    blocks = np.zeros((len(samples) + 1, 65536), np.uint8)
+    lens = np.array([len(s) for s in samples] + [-1], np.int32)
+    for i, s in enumerate(samples):
+        blocks[i, : len(s)] = np.frombuffer(s, np.uint8)
+    idx = _wide_rows(width, len(lens))
+    comp, clens, err = kes.encode_blocks_seq(
+        *kes.stage_encode(blocks[idx], lens[idx], cuda_device))
+    pcomp, pclens, perr = kes.encode_blocks_seq_plain(
+        *kes.stage_encode(blocks, lens, cuda_device))
+    torch.cuda.synchronize()
+    sel = torch.from_numpy(idx).to(cuda_device)
+    assert torch.equal(comp, pcomp[sel]) and torch.equal(clens, pclens[sel])
+    assert torch.equal(err, perr[sel]) and int(err[len(samples)]) == kes.ERR_LEN
     comp_h, clens_h = comp.cpu().numpy(), clens.cpu().numpy()
     for i, s in enumerate(samples):
         nat = native.compress(s)

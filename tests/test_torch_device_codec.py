@@ -14,9 +14,10 @@ import pytest
 import torch
 
 import snappy_tpu_torch
-from snappy_tpu import native
+from snappy_tpu import errors as jerr
 from snappy_tpu.bench.corpus import make_corpus
-from snappy_tpu.errors import (
+from snappy_tpu_torch import native
+from snappy_tpu_torch.errors import (
     BadMagicError,
     ChecksumError,
     CorruptError,
@@ -27,7 +28,9 @@ from snappy_tpu.runtime import device_codec as jdc
 from snappy_tpu.spec.crc32c import crc32c
 from snappy_tpu.spec.format import mask_crc, put_uvarint
 from snappy_tpu_torch.device import default_device, resolve
+from snappy_tpu_torch.kernels import decode_seq as kds
 from snappy_tpu_torch.kernels import encode_flat as ke
+from snappy_tpu_torch.kernels import encode_seq as kes
 from snappy_tpu_torch.kernels.decode_flat import DIRECT_T
 from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -128,10 +131,46 @@ def test_many_batches_reuse_staging(mode, nprng, monkeypatch):
     assert dc.decompress(raw, device="cpu") == data
 
 
+def test_seq_width_fills_the_card_on_cuda_only():
+    """The seq engine launches max(BATCH, the card's resident rows) rows
+    on a CUDA device and BATCH elsewhere; resident_rows needs a card."""
+    def resident(dev, width):
+        assert width == 65536
+        return 396
+
+    assert dc._seq_width(resident, torch.device("cpu"), 65536) == dc.BATCH
+    assert dc._seq_width(resident, torch.device("cuda", 0), 65536) == \
+        max(dc.BATCH, 396)
+    assert dc._seq_width(lambda d, w: 8, torch.device("cuda", 0),
+                         65536) == dc.BATCH
+    for mod in (kds, kes):
+        with pytest.raises(ValueError):
+            mod.resident_rows("cpu", 65536)
+
+
+@pytest.mark.parametrize("width", [3, 5])
+def test_seq_engine_at_a_wide_launch_width(nprng, monkeypatch, width):
+    """The seq engine's batching at a launch width other than BATCH (as
+    on a card, where it is the resident rows), the last batch ragged:
+    streams equal native.compress_framed and every byte comes back."""
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", False)
+    monkeypatch.setattr(dc, "_seq_width", lambda *a: width)
+    data = (b"launch width " * 40_000 + nprng.bytes(70_000))[: 65536 * 11 + 77]
+    stream = dc.compress_framed(data, device="cpu")
+    assert stream == native.compress_framed(data)
+    assert dc.decompress_framed(stream, device="cpu") == data
+    on_dev = dc.decompress_framed_to_device(stream, device="cpu")
+    assert on_dev.numpy().tobytes() == data
+    assert dc.compress_framed_from_device(on_dev) == stream
+    assert dc.compress(data, device="cpu") == native.compress(data)
+
+
 def _both_raise(exc, fn_port, fn_jax):
+    """fn_port raises the port's class exc, fn_jax the JAX package's."""
     with pytest.raises(exc):
         fn_port()
-    with pytest.raises(exc):
+    with pytest.raises(getattr(jerr, exc.__name__)):
         fn_jax()
 
 

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from snappy_tpu import native
-from snappy_tpu.errors import BadMagicError, ChecksumError, CorruptError
+from snappy_tpu_torch.errors import BadMagicError, ChecksumError, CorruptError
 from snappy_tpu.runtime import device_codec as jdc
 from snappy_tpu.runtime import stream as jstream
 from snappy_tpu.spec import framing
