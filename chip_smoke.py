@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA GPU:
 It builds the port's CUDA kernels (nvcc, sm_90a, one process per
 source) and the port's native host codec (g++) from the sources, checks
 each kernel bit for bit against its plain PyTorch version at the main
-path's shapes (the sequential kernels also at the seq engine's launch
-width, the card's resident rows, with hostile rows), drives the framed to-device / from-device path through the
+path's shapes (the sequential, wave-group and match kernels also at
+their engine's launch width, the card's resident rows, with hostile or
+edge rows), drives the framed to-device / from-device path through the
 public entry points in each runtime engine (id: 256 MiB, classify:
 64 MiB, the device LZ engine "seq": 256 MiB of the seeded benchmark
 corpus) against the native codec, drives the two standalone engines
@@ -66,7 +67,8 @@ KERNELS = {
         "replaces": "snappy_tpu/kernels/pallas_match.py:125",
     },
 }
-SEQ_ROWS = 64  # rows of the seq, wave and match phases and timings (BATCH)
+SEQ_ROWS = 64  # rows of the seq, wave and match checks and timings before
+               # their engines launched at the card's resident rows
 
 
 def log(card: str, msg: str) -> None:
@@ -379,62 +381,106 @@ def seq_encode_phase(card, dev, data, full):
             runs["wide"][2])
 
 
-def wave_phase(card, dev, data):
+def wave_phase(card, dev, data, full):
     """Phase 7: the wave-group kernel against its plain version and the
-    input bytes: SEQ_ROWS corpus chunks as native.compress emits them,
-    planned natively (stage_waves), plus edge rows (zeros, run-length,
-    random, empty)."""
+    input bytes, twice: SEQ_ROWS corpus chunks (the first port's width)
+    and a
+    launch at the wave engine's width (the card's resident rows) of
+    chunks taken across the 256 MiB corpus, stored-like and compressible
+    rows mixed; each as native.compress emits them, planned natively
+    (stage_waves), plus edge rows (zeros, run-length, random, empty).
+    Returns the largest difference, the SEQ_ROWS arguments and the wide
+    arguments."""
     from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
 
     rng = np.random.default_rng(12)
-    blocks = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
-    blocks += [bytes(65536), b"ab" * 32768, rng.bytes(65536), b""]
-    staged = kw.stage_waves([native.compress(b) for b in blocks], device=dev)
-    assert staged is not None, "a wave plan over WAVE_G_CAP"
-    out = kw.decode_blocks_wavegroup(*staged, 65536)
-    plain = kw.decode_blocks_wavegroup_plain(*staged, 65536)
-    torch.cuda.synchronize()
-    max_err = int((out.to(torch.int16) - plain.to(torch.int16)).abs().max())
-    assert torch.equal(out, plain), "wavegroup kernel != plain"
-    out_h = out.cpu().numpy()
-    for i, b in enumerate(blocks):
-        assert out_h[i, : len(b)].tobytes() == b, i
-        assert not out_h[i, len(b) :].any(), i
-    ng = staged[2].cpu().numpy()
-    log(card, f"wavegroup: {SEQ_ROWS} corpus rows ({int(ng[:SEQ_ROWS].min())}"
-              f"-{int(ng[:SEQ_ROWS].max())} groups) and "
-              f"{len(blocks) - SEQ_ROWS} edge rows ({ng[SEQ_ROWS:].tolist()} "
-              f"groups) byte-identical to plain and to the input "
-              f"(max_abs_err {max_err})")
-    return max_err, tuple(t[:SEQ_ROWS] for t in staged)
+    extra = [bytes(65536), b"ab" * 32768, rng.bytes(65536), b""]
+    width = kw.resident_rows(dev, 65536)
+    runs = {}
+    for name, blocks in (
+            ("64", [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]),
+            ("wide", _spread(full, width - len(extra), 0.5))):
+        ncorp = len(blocks)
+        blocks = blocks + extra
+        staged = kw.stage_waves([native.compress(b) for b in blocks],
+                                device=dev)
+        assert staged is not None, "a wave plan over WAVE_G_CAP"
+        out = kw.decode_blocks_wavegroup(*staged, 65536)
+        plain = kw.decode_blocks_wavegroup_plain(*staged, 65536)
+        torch.cuda.synchronize()
+        max_err = int((out.to(torch.int16) - plain.to(torch.int16)).abs().max())
+        assert torch.equal(out, plain), f"wavegroup kernel != plain ({name})"
+        out_h = out.cpu().numpy()
+        for i, b in enumerate(blocks):
+            assert out_h[i, : len(b)].tobytes() == b, (name, i)
+            assert not out_h[i, len(b) :].any(), (name, i)
+        ng = staged[2].cpu().numpy()
+        log(card, f"wavegroup [{len(blocks)} rows]: {ncorp} corpus rows "
+                  f"({int(ng[:ncorp].min())}-{int(ng[:ncorp].max())} groups) "
+                  f"and {len(extra)} edge rows ({ng[ncorp:].tolist()} groups) "
+                  f"byte-identical to plain and to the input (max_abs_err "
+                  f"{max_err})")
+        runs[name] = (max_err, staged)
+    return (max(r[0] for r in runs.values()),
+            tuple(t[:SEQ_ROWS] for t in runs["64"][1]), runs["wide"][1])
 
 
-def match_phase(card, dev, data):
+def match_phase(card, dev, data, full):
     """Phase 8: the match kernel against its plain version in both
-    routes (home and sorted pairs), SEQ_ROWS corpus chunks plus edge
-    blocks (empty, 3 B, 4 B, zeros, random, and exact 64 KiB blocks,
-    whose last v-words wrap round).  The CPU tests hold the plain version
-    against the JAX package's match_np.find_candidates."""
+    routes (home and sorted pairs), twice: SEQ_ROWS corpus chunks (the
+    first port's width) and a launch at the devmatch engine's width (the card's
+    resident blocks) of chunks taken across the 256 MiB corpus; each with
+    edge blocks (empty, 3 B, 4 B, zeros, all-equal, random, and exact 64
+    KiB blocks, whose last v-words wrap round).  The CPU tests hold the
+    plain version against the JAX package's match_np.find_candidates.
+    Returns as wave_phase does."""
     from snappy_tpu_torch.kernels import match as km
 
     rng = np.random.default_rng(13)
-    blocks = [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]
-    blocks += [b"", b"abc", b"abcd", bytes(65536), rng.bytes(65536),
-               bytes(range(256)) * 256, rng.bytes(40000)]
-    w, n = km.stage_words(blocks)
-    args = (torch.from_numpy(w).to(dev), torch.from_numpy(n).to(dev))
-    max_err = 0
-    for home in (True, False):
-        got = km.find_candidates(*args, home=home)
-        plain = km.find_candidates_plain(*args, home=home)
-        torch.cuda.synchronize()
-        max_err = max(max_err, int((got.long() - plain.long()).abs().max()))
-        assert torch.equal(got, plain), f"match kernel != plain (home={home})"
-    log(card, f"match_cands: {SEQ_ROWS} corpus rows and "
-              f"{len(blocks) - SEQ_ROWS} edge rows bit-exact to plain in both "
-              f"routes (max_abs_err {max_err})")
-    return max_err, tuple(t[:SEQ_ROWS] for t in args)
+    extra = [b"", b"abc", b"abcd", bytes(65536), b"\x07" * 65536,
+             rng.bytes(65536), bytes(range(256)) * 256, rng.bytes(40000)]
+    width = km.resident_rows(dev)
+    runs = {}
+    for name, blocks in (
+            ("64", [data[i << 16 : (i + 1) << 16] for i in range(SEQ_ROWS)]),
+            ("wide", _spread(full, width - len(extra), 0.625))):
+        ncorp = len(blocks)
+        w, n = km.stage_words(blocks + extra)
+        args = (torch.from_numpy(w).to(dev), torch.from_numpy(n).to(dev))
+        max_err = 0
+        for home in (True, False):
+            got = km.find_candidates(*args, home=home)
+            plain = km.find_candidates_plain(*args, home=home)
+            torch.cuda.synchronize()
+            max_err = max(max_err, int((got.long() - plain.long()).abs().max()))
+            assert torch.equal(got, plain), \
+                f"match kernel != plain (home={home}, {name})"
+        log(card, f"match_cands [{ncorp + len(extra)} blocks]: {ncorp} corpus "
+                  f"blocks and {len(extra)} edge blocks bit-exact to plain in "
+                  f"both routes (max_abs_err {max_err})")
+        runs[name] = (max_err, args)
+    return (max(r[0] for r in runs.values()),
+            tuple(t[:SEQ_ROWS] for t in runs["64"][1]), runs["wide"][1])
+
+
+def join_waves(pieces):
+    """One launch's (comp, words, ngroups) from stage_waves results of
+    consecutive rows (on one device): every row padded with zeros to the
+    widest comp row and the widest plan of the launch."""
+    dev = pieces[0][0].device
+    nb = sum(p[0].shape[0] for p in pieces)
+    cmax = max(p[0].shape[1] for p in pieces)
+    gw = max(p[1].shape[1] for p in pieces)
+    comp = torch.zeros(nb, cmax, dtype=torch.uint8, device=dev)
+    words = torch.zeros(nb, gw, pieces[0][1].shape[2], dtype=torch.int32,
+                        device=dev)
+    lo = 0
+    for c, w, _ng in pieces:
+        comp[lo : lo + c.shape[0], : c.shape[1]] = c
+        words[lo : lo + w.shape[0], : w.shape[1]] = w
+        lo += c.shape[0]
+    return comp, words, torch.cat([p[2] for p in pieces])
 
 
 def break_element(fr: bytes) -> bytes:
@@ -639,8 +685,13 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
 
     def wave_engine():
         # phase 12: the wave-group decoder: every block's native.compress
-        # stream parsed and planned on the host (stage_waves, 4 threads),
-        # the plans run on the card in launches of SEQ_ROWS rows
+        # stream parsed and planned on the host (stage_waves of 64-row
+        # pieces, 4 threads; each piece copied to the card as it comes and
+        # the pieces joined there), the plans run on the card in launches
+        # of the card's resident rows
+        width = kw.resident_rows(dev, 65536)
+        log(card, f"wave engine launch width: {width} rows (SMs x resident "
+                  f"one-warp CTAs per SM)")
         nblk = wave_mib << 4
         n = sum(len(b) for b in blocks[:nblk])
         ref = torch.zeros(nblk << 16, dtype=torch.uint8)
@@ -649,20 +700,30 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
 
         def stage(lo):
             t0 = time.perf_counter()
-            staged = kw.stage_waves(streams[lo : lo + SEQ_ROWS])
+            staged = kw.stage_waves(streams[lo : min(lo + SEQ_ROWS, nblk)],
+                                    device="cpu")
             return staged, time.perf_counter() - t0
 
-        outs, groups, launched, stage_s = [], [], [], 0.0
+        outs, groups, launched, pieces, stage_s = [], [], [], [], 0.0
+
+        def launch():
+            args = join_waves(pieces)
+            outs.append(kw.decode_blocks_wavegroup(*args, 65536))
+            launched.append(args)
+            groups.append(args[2])
+            pieces.clear()
+
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
             for staged, secs in pool.map(stage, range(0, nblk, SEQ_ROWS)):
                 assert staged is not None, "a wave plan over WAVE_G_CAP"
                 stage_s += secs
-                args = tuple(t.to(dev) for t in staged)
-                outs.append(kw.decode_blocks_wavegroup(*args, 65536))
-                launched.append(args)
-                groups.append(staged[2])
+                if sum(p[0].shape[0] for p in pieces) + staged[0].shape[0] \
+                        > width:
+                    launch()
+                pieces.append(tuple(t.to(dev) for t in staged))
+            launch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         replays["wave"] = (n, stage_s, wall, [
@@ -670,14 +731,19 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
             for a in launched])
         assert torch.equal(torch.cat(outs), ref), "wave decode != input"
         ng = torch.cat(groups)
-        log(card, f"wave: {nblk} blocks byte-identical to the input, 0 plans "
-                  f"over the cap of {kw.WAVE_G_CAP}, {int(ng.min())}-"
-                  f"{int(ng.max())} groups per block (mean "
+        log(card, f"wave: {nblk} blocks in {len(launched)} launches "
+                  f"({[a[0].shape[0] for a in launched]} rows) byte-identical "
+                  f"to the input, 0 plans over the cap of {kw.WAVE_G_CAP}, "
+                  f"{int(ng.min())}-{int(ng.max())} groups per block (mean "
                   f"{float(ng.float().mean()):.1f})")
 
     def devmatch_engine():
         # phase 13: the device match finder: stage_words, the kernel
-        # (home route), D2H, then native.emit_from_cands in 4 threads
+        # (home route) in launches of the card's resident blocks, D2H,
+        # then native.emit_from_cands in 4 threads
+        width = km.resident_rows(dev)
+        log(card, f"devmatch engine launch width: {width} blocks (SMs x "
+                  f"resident CTAs per SM)")
         nblk = devmatch_mib << 4
         n = sum(len(b) for b in blocks[:nblk])
 
@@ -690,9 +756,9 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
         t0 = time.perf_counter()
         with ThreadPoolExecutor(4) as pool:
             futs = []
-            for lo in range(0, nblk, SEQ_ROWS):
+            for lo in range(0, nblk, width):
                 t1 = time.perf_counter()
-                w, npos = km.stage_words(blocks[lo : lo + SEQ_ROWS])
+                w, npos = km.stage_words(blocks[lo : min(lo + width, nblk)])
                 stage_s += time.perf_counter() - t1
                 args = tuple(torch.from_numpy(a).to(dev) for a in (w, npos))
                 cands = km.find_candidates(*args)
@@ -847,12 +913,13 @@ def kernel_bytes(name: str, args, out_max: int = 65536) -> int:
 def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
     """Phase 14: each kernel against its plain version at the main path's
     shapes, alternating plain, kernel, kernel, plain (a serial walk's
-    plain once, before the kernel): BATCH rows (SEQ_ROWS
-    corpus rows for the wave and match kernels); the sequential kernels
-    at SEQ_ROWS corpus rows (PRs 2-4's shape) and at the seq engine's
-    width, whose plain time is phases 5-6's single call on the same
-    launch.  Each kernel's bound: its bytes (kernel_bytes) over the
-    card's memory rate; the integer and byte work per byte is far under
+    plain once, before the kernel): BATCH rows for the CRC and flat
+    kernels; the sequential, wave and match kernels at SEQ_ROWS corpus
+    rows (their first launch width) and at their engine's width (``wave``
+    and ``match``: the 64-row and wide arguments; the sequential plain
+    times at the width are phases 5-6's single call on the same launch).
+    Each kernel's bound: its bytes (kernel_bytes) over the card's memory
+    rate; the integer and byte work per byte is far under
     the card's operation rates, so bytes bound all six.  Returns, per
     kernel at its main-path shape: ms, plain_ms, bound_ms, rows."""
     from snappy_tpu_torch.kernels import crc32c as kc
@@ -889,8 +956,10 @@ def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
             ("seq_encode", "64", seq64["seq_encode"], 20, 1),
             ("seq_encode", "wide", seq_wide["seq_encode"][0], 10,
              seq_wide["seq_encode"][1]),
-            ("wavegroup", "", wave, 50, 2),
-            ("match_cands", "", match, 50, 5)]
+            ("wavegroup", "64", wave[0], 50, 2),
+            ("wavegroup", "wide", wave[1], 20, 2),
+            ("match_cands", "64", match[0], 50, 5),
+            ("match_cands", "wide", match[1], 20, 3)]
     for name, shape, args, k_iters, plain_it in runs:
         kern_fn, plain_fn, kw_args = fns[name]
         kern = lambda: kern_fn(*args, **kw_args)  # noqa: E731
@@ -1280,8 +1349,10 @@ def main() -> int:
         card, dev, flat_data, full)
     seq_enc_err, enc64, enc_wide, enc_plain_s = seq_encode_phase(
         card, dev, flat_data[1 << 23 :], full)
-    wave_err, wave = wave_phase(card, dev, flat_data[1 << 22 :])
-    match_err, match = match_phase(card, dev, flat_data[3 << 22 :])
+    wave_err, wave64, wave_wide = wave_phase(card, dev, flat_data[1 << 22 :],
+                                             full)
+    match_err, match64, match_wide = match_phase(
+        card, dev, flat_data[3 << 22 :], full)
 
     for k in dc.HOST_FALLBACKS:
         dc.HOST_FALLBACKS[k] = 0
@@ -1298,7 +1369,8 @@ def main() -> int:
         card, dev, plan, eplan,
         {"seq_decode": dec64, "seq_encode": enc64},
         {"seq_decode": (dec_wide, dec_plain_s * 1e3),
-         "seq_encode": (enc_wide, enc_plain_s * 1e3)}, wave, match)
+         "seq_encode": (enc_wide, enc_plain_s * 1e3)},
+        (wave64, wave_wide), (match64, match_wide))
 
     ck_rates, ck_counts, info_blob = checkpoint_phase(
         card, dev, args.ckpt_layers, args.seed)

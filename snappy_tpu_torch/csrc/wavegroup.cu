@@ -1,4 +1,4 @@
-// Wave-group decode: host-planned groups of up to 8 copies, one CTA per row.
+// Wave-group decode: host-planned groups of up to 8 copies, one warp per row.
 //
 // Replaces snappy_tpu/kernels/decode_wavegroup.py:_wg_kernel, which runs a
 // group as one 1,280-byte span load, per slot a pair load, a lane select, a
@@ -7,127 +7,156 @@
 // slot k of group g copies len <= 128 bytes to out[dst:] from comp[src:] or,
 // for a copy piece, from out[src:]; bytes no slot writes are zero.
 //
-// Design: grid of B CTAs of 256 threads, one warp per slot.  The CTA stages
-// the row's compressed bytes in shared memory, zeroes a shared-memory image
-// of the output row and writes it out once at the end (rows wider than 96 KiB
-// stay in device memory, through the same generic pointers).  The plan words
-// come into shared memory 256 groups at a time with 16-byte loads.  In a
-// group each lane moves up to 4 bytes of its warp's slot; one __syncthreads()
-// ends the group.  That one barrier is enough for plans that keep the
-// planner's invariants: a copy piece's source ends at or before the group's
-// first destination, so within a group no slot reads a byte that another
-// slot writes, and every byte it reads was written by an earlier group.  On
-// any other plan the bytes are unspecified, but every access stays inside
-// the row: sources past the row read zero, destinations past it are dropped,
-// lengths are capped at 128 and the group count at the plan's width.
+// What bounds it on this card: the chain of groups of each row (up to 2,000
+// groups per 64 KiB corpus block), not bytes: a row is a dependent chain of
+// groups, and a group's step is a few dozen instructions.  The design keeps
+// the step short and as many chains in flight as the card holds:
 //
-// Bound on this card: the barrier chain, one per group (64-2,000 groups per
-// 64 KiB corpus block), at one CTA per row and BATCH = 64 rows per launch.
+// * One warp runs a row: a CTA of 32 threads, a group a step, __syncwarp()
+//   between groups (it orders device memory among the lanes).  That is
+//   enough for plans that keep the planner's invariants: a copy piece's
+//   source ends at or before the group's first destination, so within a
+//   group no slot reads a byte that another slot writes, and every byte it
+//   reads was written by an earlier group.
+// * Lanes 4k .. 4k + 3 run slot k: lane q moves bytes q, q + 4, ... of it,
+//   all its loads before its stores, as predicated PTX (no lane diverges),
+//   unrolled for the group's longest slot rounded up to 16, 32, 64 or 128
+//   bytes.  A lane needs only its own slot's two plan words (two shuffles).
+// * The plan words come eight groups to four 128-byte warp loads, the next
+//   eight loaded before the current ones run.  The compressed row is read
+//   through L1, never staged.
+// * The row is built where it lies in device memory (zeroed first); copy
+//   sources are read back with plain loads (never .nc: this kernel wrote
+//   them).  No shared memory, at most 64 registers a thread: 32 CTAs an SM,
+//   so a launch of sm_count x 32 rows (kernels/decode_wavegroup.
+//   resident_rows) holds 4,224 chains on 132 SMs.  A 64 KiB shared-memory
+//   image of the row ran each chain no faster on the card and held three
+//   rows an SM (PERF.md).  Also measured and not kept: every lane
+//   moving bytes of all eight slots (16 shuffles and 64 predicated accesses
+//   a group: a row's chain 1.9x as long as a quad a slot), a C++ `if`
+//   around each access (a branch and a reconvergence each: 3.7x as long as
+//   predicated PTX), and L1 prefetches of comp lines ahead of the literal
+//   slots (slower).
+//
+// On plans that break the invariants the bytes are unspecified, but every
+// access stays inside the row: sources past the row read zero, destinations
+// past it are dropped, lengths are capped at 128 and the group count at the
+// plan's width.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kSlots = 8;
-constexpr int kThreads = kSlots * 32;
-constexpr int kChunk = 256;       // plan groups staged in shared memory
-constexpr int kSmemRow = 98304;   // widest row staged in shared memory
+constexpr int kCtasPerSm = 32;  // the most one-warp CTAs an SM holds
 constexpr uint32_t kM17 = (1u << 17) - 1;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ void block_copy(uint8_t* dst, const uint8_t* src, int64_t n,
-                           int tid) {
-  int64_t i = tid;
-  if (((reinterpret_cast<uintptr_t>(dst) |
-        reinterpret_cast<uintptr_t>(src)) & 15u) == 0) {
-    const int64_t n16 = n >> 4;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (; i < n16; i += kThreads) d4[i] = s4[i];
-    i = (n16 << 4) + tid;
-  }
-  for (; i < n; i += kThreads) dst[i] = src[i];
+// *a if ok, else 0 (generic address: the device row or the comp row)
+__device__ __forceinline__ uint32_t load_if(bool ok, const uint8_t* a) {
+  uint32_t v;
+  asm volatile(
+      "{ .reg .pred p; setp.ne.u32 p, %1, 0; mov.u32 %0, 0;"
+      " @p ld.u8 %0, [%2]; }"
+      : "=r"(v)
+      : "r"(static_cast<uint32_t>(ok)), "l"(a)
+      : "memory");
+  return v;
 }
 
-__device__ void block_zero(uint8_t* dst, int64_t n, int tid) {
+__device__ __forceinline__ void store_if(bool ok, uint8_t* a, uint32_t v) {
+  asm volatile(
+      "{ .reg .pred p; setp.ne.u32 p, %0, 0; @p st.u8 [%1], %2; }" ::"r"(
+          static_cast<uint32_t>(ok)),
+      "l"(a), "r"(v)
+      : "memory");
+}
+
+// this lane's bytes q + 4i (i < N) of its slot: nl of them readable from
+// sp - q, ns writable at dp - q
+template <int N>
+__device__ __forceinline__ void move(const uint8_t* sp, uint8_t* dp,
+                                     int32_t nl, int32_t ns, int q) {
+  uint32_t v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = load_if(q + 4 * i < nl, sp + 4 * i);
+#pragma unroll
+  for (int i = 0; i < N; ++i) store_if(q + 4 * i < ns, dp + 4 * i, v[i]);
+}
+
+__device__ void warp_zero(uint8_t* dst, int64_t n, int lane) {
   int64_t head = (16 - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u;
   if (head > n) head = n;
-  if (tid < head) dst[tid] = 0;
+  if (lane < head) dst[lane] = 0;
   uint4* d4 = reinterpret_cast<uint4*>(dst + head);
   const int64_t n16 = (n - head) >> 4;
-  for (int64_t i = tid; i < n16; i += kThreads)
-    d4[i] = make_uint4(0u, 0u, 0u, 0u);
-  for (int64_t i = head + (n16 << 4) + tid; i < n; i += kThreads) dst[i] = 0;
+  for (int64_t i = lane; i < n16; i += 32) d4[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int64_t i = head + (n16 << 4) + lane; i < n; i += 32) dst[i] = 0;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32, kCtasPerSm)
 wavegroup_kernel(const uint8_t* __restrict__ comp, int64_t pitch,
                  int32_t cmax, const int32_t* __restrict__ words,
                  int32_t gcap, const int32_t* __restrict__ ngroups,
-                 uint8_t* out, int32_t out_max, int32_t smem_comp,
-                 int32_t smem_out) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  int32_t* wsm = reinterpret_cast<int32_t*>(smem);  // kChunk groups x 16
-  uint8_t* csm = smem + kChunk * 16 * sizeof(int32_t);
-  uint8_t* osm = csm + smem_comp;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int slot = tid >> 5;
+                 uint8_t* out, int32_t out_max) {
+  const int lane = threadIdx.x;
+  const int k = lane >> 2;  // this lane's slot
+  const int q = lane & 3;
   const int64_t b = blockIdx.x;
-
   const uint8_t* c = comp + b * pitch;
-  if (smem_comp > 0) {
-    block_copy(csm, c, cmax, tid);
-    c = csm;
-  }
-  uint8_t* orow = out + b * static_cast<int64_t>(out_max);
-  uint8_t* o = smem_out > 0 ? osm : orow;
-  block_zero(o, out_max, tid);
+  uint8_t* o = out + b * static_cast<int64_t>(out_max);
+  warp_zero(o, out_max, lane);
 
   int32_t ng = ngroups[b];
   ng = ng < 0 ? 0 : (ng > gcap ? gcap : ng);
   const int32_t* wrow = words + b * static_cast<int64_t>(gcap) * 16;
-  const bool w_aligned = (reinterpret_cast<uintptr_t>(wrow) & 15u) == 0;
-  __syncthreads();
+  // words of groups g .. g + 7: lane l holds word l of pair i in ci
+  const auto load8 = [&](int32_t g, int pair) -> int32_t {
+    return g + 2 * pair + (lane >> 4) < ng ? wrow[(g + 2 * pair) * 16 + lane]
+                                           : 0;
+  };
+  int32_t c0 = load8(0, 0), c1 = load8(0, 1), c2 = load8(0, 2),
+          c3 = load8(0, 3);
+  __syncwarp();
 
-  for (int32_t g0 = 0; g0 < ng; g0 += kChunk) {
-    const int32_t n = ng - g0 < kChunk ? ng - g0 : kChunk;
-    if (w_aligned) {
-      const int4* s4 = reinterpret_cast<const int4*>(wrow + g0 * 16);
-      int4* d4 = reinterpret_cast<int4*>(wsm);
-      for (int i = tid; i < n * 4; i += kThreads) d4[i] = s4[i];
-    } else {
-      for (int i = tid; i < n * 16; i += kThreads) wsm[i] = wrow[g0 * 16 + i];
-    }
-    __syncthreads();
-    for (int32_t g = 0; g < n; ++g) {
-      const uint32_t w1 = static_cast<uint32_t>(wsm[g * 16 + 2 * slot]);
-      const uint32_t w2 = static_cast<uint32_t>(wsm[g * 16 + 2 * slot + 1]);
+  for (int32_t g = 0; g < ng; g += 8) {
+    const int32_t n0 = load8(g + 8, 0), n1 = load8(g + 8, 1),
+                  n2 = load8(g + 8, 2), n3 = load8(g + 8, 3);
+    const int cnt = ng - g < 8 ? ng - g : 8;
+    for (int h = 0; h < cnt; ++h) {
+      const int32_t cw = h < 2 ? c0 : (h < 4 ? c1 : (h < 6 ? c2 : c3));
+      const int at = 16 * (h & 1) + 2 * k;
+      const uint32_t w1 = static_cast<uint32_t>(__shfl_sync(kFull, cw, at));
+      const uint32_t w2 =
+          static_cast<uint32_t>(__shfl_sync(kFull, cw, at + 1));
       const int32_t ln = (w2 >> 17) < 128u ? static_cast<int32_t>(w2 >> 17)
                                            : 128;
-      const int32_t src = static_cast<int32_t>(w1 & kM17);
       const int32_t dst = static_cast<int32_t>(w2 & kM17);
+      const int32_t src = static_cast<int32_t>(w1 & kM17);
       const bool from_out = (w1 >> 17) & 1u;
-      const uint8_t* sb = from_out ? o : c;
-      const int32_t lim = from_out ? out_max : cmax;
-      uint8_t v[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int32_t j = lane + 32 * t;
-        v[t] = (j < ln && src + j < lim) ? sb[src + j] : 0;
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int32_t j = lane + 32 * t;
-        if (j < ln && dst + j < out_max) o[dst + j] = v[t];
-      }
-      __syncthreads();
+      const int32_t room = (from_out ? out_max : cmax) - src;
+      const int32_t nl = ln < room ? ln : room;
+      const int32_t ns = ln < out_max - dst ? ln : out_max - dst;
+      const uint8_t* sp = (from_out ? o : c) + src + q;
+      uint8_t* dp = o + dst + q;
+      const unsigned longest =
+          __reduce_max_sync(kFull, static_cast<unsigned>(ln));
+      if (longest <= 16)
+        move<4>(sp, dp, nl, ns, q);
+      else if (longest <= 32)
+        move<8>(sp, dp, nl, ns, q);
+      else if (longest <= 64)
+        move<16>(sp, dp, nl, ns, q);
+      else
+        move<32>(sp, dp, nl, ns, q);
+      __syncwarp();
     }
+    c0 = n0;
+    c1 = n1;
+    c2 = n2;
+    c3 = n3;
   }
-  if (smem_out > 0) block_copy(orow, osm, out_max, tid);
 }
-
-int round16(int64_t n) { return static_cast<int>((n + 15) & ~int64_t{15}); }
 
 }  // namespace
 
@@ -136,16 +165,15 @@ extern "C" int snc_wavegroup(const uint8_t* comp, int64_t pitch, int32_t cmax,
                              const int32_t* ngroups, uint8_t* out,
                              int32_t out_max, int32_t n_rows, void* stream) {
   if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
-  const int smem_comp = cmax <= kSmemRow ? round16(cmax) : 0;
-  const int smem_out = out_max <= kSmemRow ? round16(out_max) : 0;
-  const int smem =
-      kChunk * 16 * static_cast<int>(sizeof(int32_t)) + smem_comp + smem_out;
-  cudaError_t rc = cudaFuncSetAttribute(
-      wavegroup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  wavegroup_kernel<<<n_rows, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      comp, pitch, cmax, words, gcap, ngroups, out, out_max, smem_comp,
-      smem_out);
+  wavegroup_kernel<<<n_rows, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      comp, pitch, cmax, words, gcap, ngroups, out, out_max);
   return static_cast<int>(cudaGetLastError());
+}
+
+// blocks (rows) of the kernel one SM holds at once; rows of any width
+// (out_max) are built in device memory, so it does not change the count
+extern "C" int snc_wavegroup_blocks_per_sm(int32_t out_max, int* blocks) {
+  (void)out_max;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, wavegroup_kernel, 32, 0));
 }

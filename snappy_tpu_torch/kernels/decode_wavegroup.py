@@ -32,8 +32,15 @@ compare with JAX on ``out[:, :dlen]``.  The CUDA kernel does not check;
 it stays inside its rows whatever the plan (bytes past a row read as
 zero, writes past it are dropped).
 
-On a CUDA tensor the wrapper launches ``csrc/wavegroup.cu``; on a CPU
-tensor it runs the plain version.  There is no other switch.
+On a CUDA tensor the wrapper launches ``csrc/wavegroup.cu`` (one warp
+per row, the groups in order, the row built in device memory); on a CPU
+tensor it runs the plain version.  There is no other switch.  ``resident_rows`` is the launch
+width that fills the card.
+
+``wavegroup_model`` is the kernel's decomposition on the host, for the
+tests: a row per warp, plan words eight groups to four loads, a quad of
+lanes per slot whose loads come before its stores, the row zeroed
+first.
 """
 
 from __future__ import annotations
@@ -49,8 +56,10 @@ __all__ = [
     "execute_waves_np",
     "pack_plan",
     "stage_waves",
+    "resident_rows",
     "decode_blocks_wavegroup",
     "decode_blocks_wavegroup_plain",
+    "wavegroup_model",
 ]
 
 SLOTS = 8
@@ -161,17 +170,29 @@ def pack_plan(words: np.ndarray, n_groups: int, g_cap: int) -> np.ndarray:
     return out
 
 
-def stage_waves(streams, g_cap: int = WAVE_G_CAP, device="cpu"):
+def resident_rows(device, out_max: int) -> int:
+    """Rows the card holds in flight at once for ``out_max``-byte rows (SMs x
+    resident one-warp CTAs per SM; the kernel builds rows of any width in
+    device memory, so the count is the same for every ``out_max``): the
+    wave engine's launch width."""
+    from snappy_tpu_torch.kernels import _build
+
+    return _build.resident_rows("snc_wavegroup_blocks_per_sm", device, out_max)
+
+
+def stage_waves(streams, g_cap: int = WAVE_G_CAP, device=None):
     """``(comp, words, ngroups)`` for a batch of raw Snappy streams, or
     None when any stream's plan needs more than ``g_cap`` groups (never
     a truncated plan).  Each stream is parsed (``native.parse_tags``)
     and planned (``native.plan_waves``); ``comp`` holds the streams
     whole (the records address them from byte 0) in rows as wide as the
     longest, rounded up to 128 bytes, and ``words`` is as wide as the
-    batch's largest plan, rounded up to 8 groups.  Raises on a corrupt
-    stream.  The native calls release the GIL, so batches stage in
-    parallel from a thread pool."""
+    batch's largest plan, rounded up to 8 groups.  The tensors land on
+    ``device`` (``device.resolve``: the card unless asked for the CPU).
+    Raises on a corrupt stream.  The native calls release the GIL, so
+    batches stage in parallel from a thread pool."""
     from snappy_tpu_torch import native
+    from snappy_tpu_torch.device import resolve
     from snappy_tpu_torch.spec.format import read_uvarint
 
     nb = len(streams)
@@ -196,8 +217,10 @@ def stage_waves(streams, g_cap: int = WAVE_G_CAP, device="cpu"):
     for i, p in enumerate(plans):
         words[i, : len(p)] = p
 
+    dev = resolve(device)
+
     def put(a):
-        return torch.from_numpy(a).to(device)
+        return torch.from_numpy(a).to(dev)
 
     return put(comp), put(words.reshape(nb, width // 8, VEC)), put(ngroups)
 
@@ -315,4 +338,52 @@ def decode_blocks_wavegroup(comp, words, ngroups, out_max: int):
             nb, stream)
     _build.check(rc, "wavegroup")
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------
+# the kernel's decomposition on the host (tests only)
+
+
+def wavegroup_model(comp: np.ndarray, words: np.ndarray, ngroups: np.ndarray,
+                    out_max: int) -> np.ndarray:
+    """decode_blocks_wavegroup's result computed as the kernel decomposes
+    it: row b is warp b's; the warp reads the plan words of groups g ..
+    g + 7 as four loads of 32 words (lane l holds word l of each pair of
+    groups), runs the groups in order, and in a group lanes 4k .. 4k + 3
+    run slot k, lane q loading bytes q + 4i of it before storing any
+    (sources past the row read zero, stores past it are dropped); the
+    row is zeroed first.  Numpy in (comp uint8 [B, cmax], words int32
+    [B, G/8, 128], ngroups [B]), numpy out: uint8 [B, out_max]."""
+    nb, cmax = comp.shape
+    gcap = words.shape[1] * 8
+    flat = words.reshape(nb, gcap * 16).view(np.uint32)
+    out = np.zeros((nb, out_max), np.uint8)
+    # a slot's byte offsets in lane order: lane q of its quad, step i
+    j = (np.arange(4)[:, None] + 4 * np.arange(VEC // 4)[None, :]).reshape(-1)
+    for b in range(nb):
+        img = out[b]
+        ng = min(max(int(ngroups[b]), 0), gcap)
+        for g in range(0, ng, 8):
+            regs = np.zeros((4, 32), np.uint32)  # the lanes' words
+            live = min(ng - g, 8)
+            regs.reshape(-1)[: 16 * live] = flat[b, g * 16 : (g + live) * 16]
+            for h in range(live):
+                w = regs[h // 2, 16 * (h % 2) : 16 * (h % 2) + 16].astype(
+                    np.int64)
+                w1, w2 = w[0::2], w[1::2]
+                ln = np.minimum(w2 >> 17, 128)
+                src, dst, from_out = w1 & _M17, w2 & _M17, (w1 >> 17) & 1
+                loads = []
+                for k in range(SLOTS):  # each quad's loads ...
+                    s = src[k] + j
+                    lim = out_max if from_out[k] else cmax
+                    buf = img if from_out[k] else comp[b]
+                    ok = (j < ln[k]) & (s < lim)
+                    loads.append(np.where(ok, buf[np.minimum(s, lim - 1)]
+                                          if lim else 0, 0))
+                for k in range(SLOTS):  # ... before any store
+                    d = dst[k] + j
+                    ok = (j < ln[k]) & (d < out_max)
+                    img[d[ok]] = loads[k][ok]
     return out

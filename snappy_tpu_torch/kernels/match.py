@@ -26,9 +26,17 @@ The candidates do not change (those positions are invalid), but the
 order of the ``home=False`` pairs does when a block fills its slots.
 
 On a CUDA tensor the wrapper launches ``csrc/match.cu`` (a stable radix
-sort of the positions by ``v`` in one CTA per block); on a CPU tensor
-it runs the plain version (``torch.sort`` of int64 keys ``v << 21 |
-position key``).  There is no other switch.
+sort of the positions by ``v`` in one CTA per block, in shared memory
+and registers); on a CPU tensor it runs the plain version
+(``torch.sort`` of int64 keys ``v << 21 | position key``).  There is no
+other switch.  ``resident_rows`` is the launch width that fills the
+card.
+
+``find_candidates_model`` is the kernel's decomposition on the host, for
+the tests: four LSD passes whose digits are the block's bytes, so one
+byte histogram gives every pass's bases; per-warp counts, taken for
+the next pass as each scatter places its elements, scanned
+digit-major, warp-minor; equal digits ranked in order within a warp.
 """
 
 from __future__ import annotations
@@ -42,12 +50,22 @@ NONE16 = 0xFFFF  # packed "no candidate" sentinel
 BIG = 1 << 20    # pos key for invalid (tail) slots
 
 __all__ = ["find_candidates", "find_candidates_plain",
-           "find_candidates_device", "stage_words", "scatter_home"]
+           "find_candidates_device", "find_candidates_model",
+           "resident_rows", "stage_words", "scatter_home"]
 
 VEC = 128
+WARPS = 32  # warps of the kernel's CTA; each owns slots/32 sorted indices
 
 # kernel launches made by find_candidates (one per CUDA call)
 launches = 0
+
+
+def resident_rows(device, slots: int = BMAX) -> int:
+    """Blocks the card holds in flight at once for ``slots``-byte blocks
+    (SMs x resident CTAs per SM): the devmatch engine's launch width."""
+    from snappy_tpu_torch.kernels import _build
+
+    return _build.resident_rows("snc_match_blocks_per_sm", device, slots)
 
 
 def stage_words(blocks: list[bytes],
@@ -155,12 +173,11 @@ def find_candidates(words, npos, home: bool = True):
     out = torch.empty(nb, rows, VEC, dtype=torch.int32, device=words.device)
     if nb == 0:
         return out
-    scratch = torch.empty(nb, 2, slots, dtype=torch.int16, device=words.device)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
         rc = _build.lib().snc_match_cands(
             words.data_ptr(), npos.data_ptr(), slots, int(home),
-            scratch.data_ptr(), out.data_ptr(), nb, stream)
+            out.data_ptr(), nb, stream)
     _build.check(rc, "match_cands")
     launches += 1
     return out
@@ -182,3 +199,79 @@ def find_candidates_device(blocks: list[bytes], slots: int = BMAX,
     if home:
         return out.reshape(len(blocks), slots)
     return scatter_home(out)
+
+
+# ---------------------------------------------------------------------
+# the kernel's decomposition on the host (tests only)
+
+
+def _sort_model(blk: np.ndarray) -> np.ndarray:
+    """The kernel's four LSD passes over one block's bytes (uint8
+    [slots]): the sorted order of the positions, as int64 [slots]."""
+    slots = blk.shape[0]
+    mask = slots - 1
+    chunk = slots // WARPS
+    # pass 0's per-warp counts: the bytes of each warp's chunk; they add
+    # up to the byte histogram, which is every pass's digit totals (the
+    # digits of pass k are bytes (p + k) mod slots for every p)
+    counts = np.stack([np.bincount(blk[w * chunk : (w + 1) * chunk],
+                                   minlength=256) for w in range(WARPS)])
+    total = counts.sum(0)
+    base = np.cumsum(total) - total
+    order = np.arange(slots)
+    for k in range(4):
+        d = blk[(order + k) & mask].astype(np.int64).reshape(WARPS, chunk)
+        # start offsets, digit-major, warp-minor
+        start = base[None, :] + np.cumsum(counts, 0) - counts
+        # a warp walks its sorted indices 32 at a time; equal digits take
+        # the next places in lane order: the rank among earlier equal
+        # digits of its chunk
+        srt = np.argsort(d, axis=1, kind="stable")
+        ds = np.take_along_axis(d, srt, 1)
+        rank = np.empty_like(d)
+        for w in range(WARPS):
+            rank[w, srt[w]] = np.arange(chunk) - np.searchsorted(ds[w], ds[w])
+        at = (np.take_along_axis(start, d, 1) + rank).reshape(-1)
+        new = np.empty(slots, np.int64)
+        new[at] = order
+        # the scatter counts the next pass's digits by the warp that will
+        # own each element's new index
+        counts = np.zeros((WARPS, 256), np.int64)
+        np.add.at(counts, (at // chunk, blk[(order + k + 1) & mask]), 1)
+        order = new
+    return order
+
+
+def find_candidates_model(words: np.ndarray, npos: np.ndarray,
+                          home: bool = True) -> np.ndarray:
+    """find_candidates's result computed as the kernel decomposes it:
+    the four passes of ``_sort_model``, then each sorted element's
+    predecessor and run head.  Numpy in (``stage_words``' arrays), numpy
+    out, the layouts of find_candidates."""
+    nb = words.shape[0]
+    slots = words.shape[1] * 4 * VEC
+    blks = np.ascontiguousarray(words).view(np.uint8).reshape(nb, slots)
+    pos = np.arange(slots)
+    out = np.empty((nb, slots if home else 2 * slots), np.uint32)
+    for b in range(nb):
+        blk = blks[b]
+        order = _sort_model(blk)
+        v = np.zeros(slots, np.uint32)
+        for j in range(4):
+            v |= blk[(pos + j) & (slots - 1)].astype(np.uint32) << (8 * j)
+        sv = v[order]
+        head = np.ones(slots, bool)
+        head[1:] = sv[1:] != sv[:-1]
+        head_idx = np.maximum.accumulate(np.where(head, pos, 0))
+        prev = np.concatenate([[0], order[:-1]])
+        first = order[head_idx]
+        ok = order < npos[b]
+        near = np.where(~head & (prev < npos[b]), prev, NONE16)
+        first = np.where(~head & (first < npos[b]), first, NONE16)
+        packed = np.where(ok, near | (first << 16), 0xFFFFFFFF)
+        if home:
+            out[b, order] = packed
+        else:
+            out[b, :slots] = order
+            out[b, slots:] = packed
+    return out.view(np.int32).reshape(nb, -1, VEC)

@@ -388,40 +388,120 @@ def test_match_kernel_matches_plain(cuda_device, rng, home):
                        km.find_candidates_plain(w_d, n_d, home=home))
 
 
+@pytest.mark.parametrize("delta", [-1, 1])
+def test_wavegroup_kernel_at_resident_width(cuda_device, rng, delta):
+    """The redesigned wave kernel at the card's resident rows minus and
+    plus one: corpus rows and stored-like (random) rows mixed in one
+    launch, with edge rows, each row cycled from a distinct set and
+    compared with the plain version of that set."""
+    width = kw.resident_rows(cuda_device, 65536) + delta
+    blocks = _blocks(_corpus(25, 12 << 16))
+    blocks += [rng.bytes(65536), bytes(65536), b"ab" * 32768, rng.bytes(65536),
+               b"", b"x", rng.bytes(30000) + bytes(35536)]
+    idx = _wide_rows(width, len(blocks))
+    streams = [native.compress(b) for b in blocks]
+    comp, words, ng = kw.stage_waves([streams[i] for i in idx],
+                                     device=cuda_device)
+    before = kw.launches
+    out = kw.decode_blocks_wavegroup(comp, words, ng, 65536)
+    torch.cuda.synchronize()
+    assert kw.launches == before + 1
+    pout = kw.decode_blocks_wavegroup_plain(
+        *kw.stage_waves(streams, device=cuda_device), 65536)
+    assert torch.equal(out, pout[torch.from_numpy(idx).to(cuda_device)])
+    out_h = out.cpu().numpy()
+    for r in range(len(blocks)):
+        assert out_h[r, : len(blocks[r])].tobytes() == blocks[r]
+        assert not out_h[r, len(blocks[r]) :].any()
+
+
+@pytest.mark.parametrize("home", [True, False])
+@pytest.mark.parametrize("delta", [-1, 1])
+def test_match_kernel_at_resident_width(cuda_device, rng, home, delta):
+    """The redesigned match kernel at the card's resident blocks minus and
+    plus one, in both routes: corpus blocks and edge blocks (exact 64 KiB
+    blocks whose last words wrap, all-equal, short) cycled from a
+    distinct set and compared with the plain version of that set."""
+    width = km.resident_rows(cuda_device) + delta
+    blocks = _blocks(_corpus(26, 12 << 16))
+    blocks += [b"", b"abc", b"abcd", bytes(65536), rng.bytes(65536),
+               bytes(range(256)) * 256, rng.bytes(30001), b"wrap" * 16384]
+    idx = _wide_rows(width, len(blocks))
+    w, n = km.stage_words(blocks)
+    w_d, n_d = torch.from_numpy(w).to(cuda_device), torch.from_numpy(n).to(
+        cuda_device)
+    sel = torch.from_numpy(idx).to(cuda_device)
+    before = km.launches
+    got = km.find_candidates(w_d[sel], n_d[sel], home=home)
+    torch.cuda.synchronize()
+    assert km.launches == before + 1
+    assert torch.equal(got, km.find_candidates_plain(w_d, n_d, home=home)[sel])
+
+
+def test_blocks_per_sm_entries(cuda_device):
+    """Both new width queries report at least one resident block an SM,
+    and resident_rows is SMs times that."""
+    import ctypes
+
+    from snappy_tpu_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for entry, width, rows in (
+            ("snc_match_blocks_per_sm", km.BMAX, km.resident_rows(cuda_device)),
+            ("snc_wavegroup_blocks_per_sm", 65536,
+             kw.resident_rows(cuda_device, 65536))):
+        n = ctypes.c_int(0)
+        _build.check(getattr(_build.lib(), entry)(width, ctypes.addressof(n)),
+                     entry)
+        assert n.value >= 1, entry
+        assert rows == sms * n.value, entry
+
+
+def test_stage_waves_defaults_to_the_card(cuda_device):
+    staged = kw.stage_waves([native.compress(b"abc" * 1000)])
+    assert all(t.device == cuda_device for t in staged)
+    staged = kw.stage_waves([native.compress(b"abc" * 1000)], device="cpu")
+    assert all(t.device.type == "cpu" for t in staged)
+
+
 def test_wave_engine(cuda_device):
-    """The wave engine of chip_smoke.py at 2 MiB: native.compress
-    streams, stage_waves, launches of 8 rows, compared on the device."""
-    data = _corpus(22)
+    """The wave engine of chip_smoke.py at its width (the card's resident
+    rows a launch) over one and a half launches of corpus blocks:
+    native.compress streams, stage_waves, compared on the device."""
+    width = kw.resident_rows(cuda_device, 65536)
+    nblk = width + width // 2
+    data = _corpus(22, nblk << 16)
     blocks = _blocks(data)
     streams = [native.compress(b) for b in blocks]
     ref = torch.frombuffer(bytearray(data[: len(blocks) << 16]),
                            dtype=torch.uint8).to(cuda_device).view(-1, 65536)
     before = kw.launches
-    for lo in range(0, len(blocks), 8):
-        staged = kw.stage_waves(streams[lo : lo + 8])
+    for lo in range(0, len(blocks), width):
+        staged = kw.stage_waves(streams[lo : lo + width])
         assert staged is not None
-        out = kw.decode_blocks_wavegroup(
-            *(t.to(cuda_device) for t in staged), 65536)
-        assert torch.equal(out, ref[lo : lo + 8])
-    assert kw.launches == before + (len(blocks) + 7) // 8
+        out = kw.decode_blocks_wavegroup(*staged, 65536)
+        assert torch.equal(out, ref[lo : lo + width])
+    assert kw.launches == before + -(-len(blocks) // width)
 
 
 def test_devmatch_engine(cuda_device):
-    """The devmatch engine of chip_smoke.py at 2 MiB: candidates on the
-    card, emission on the host, every emission decoding to its block,
+    """The devmatch engine of chip_smoke.py at its width (the card's
+    resident blocks a launch) over one and a half launches: candidates on
+    the card, emission on the host, every emission decoding to its block,
     and the total smaller than the native encoder's bodies."""
-    blocks = _blocks(_corpus(23))
+    width = km.resident_rows(cuda_device)
+    blocks = _blocks(_corpus(23, (width + width // 2) << 16))
     before = km.launches
     emitted = ref = 0
-    for lo in range(0, len(blocks), 8):
-        batch = blocks[lo : lo + 8]
+    for lo in range(0, len(blocks), width):
+        batch = blocks[lo : lo + width]
         cands = km.find_candidates_device(batch, device=cuda_device)
         for blk, c in zip(batch, cands):
             body = native.emit_from_cands(blk, np.ascontiguousarray(c))
             assert native.decompress(put_uvarint(len(blk)) + body) == blk
             emitted += len(body)
             ref += len(native.compress(blk)) - len(put_uvarint(len(blk)))
-    assert km.launches == before + (len(blocks) + 7) // 8
+    assert km.launches == before + -(-len(blocks) // width)
     assert emitted < ref
 
 

@@ -65,8 +65,9 @@ def test_cap_overflow_gives_none():
     stream = reference.compress(bytes(range(256)) * 8)
     assert kw.plan_waves(_TMP, _records(stream), cap_groups=1) is None
     ok = reference.compress(b"tiny")
-    assert kw.stage_waves([ok, stream], g_cap=4) is None
-    comp, words, ng = kw.stage_waves([ok, stream], g_cap=8192)
+    assert kw.stage_waves([ok, stream], g_cap=4, device="cpu") is None
+    comp, words, ng = kw.stage_waves([ok, stream], g_cap=8192,
+                                     device="cpu")
     assert ng.tolist()[0] == 1 and ng.tolist()[1] > 4
 
 
@@ -75,7 +76,7 @@ def test_plain_matches_jax_kernel_and_np_replay(rng):
     with stage_waves and fed to both packages."""
     samples = _samples(rng) + _corpus_blocks()
     streams = [native.compress(s) for s in samples]
-    comp, words, ng = kw.stage_waves(streams)
+    comp, words, ng = kw.stage_waves(streams, device="cpu")
     assert comp.shape[1] % 128 == 0 and words.shape[1] * 8 >= int(ng.max())
     out = kw.decode_blocks_wavegroup(comp, words, ng, 65536).numpy()
     jout = np.asarray(jw.decode_blocks_wavegroup(
@@ -96,7 +97,7 @@ def test_uneven_batch_and_widths(rng):
     row needs."""
     samples = [b"x" * 700 + rng.randbytes(77), rng.randbytes(5), b""]
     streams = [reference.compress(s) for s in samples]
-    comp, words, ng = kw.stage_waves(streams)
+    comp, words, ng = kw.stage_waves(streams, device="cpu")
     cmax = max(len(s) for s in streams) + 3
     wide = torch.cat([words, torch.zeros_like(words)], 1)
     out = kw.decode_blocks_wavegroup(comp[:, :cmax], wide, ng, 801)
@@ -109,7 +110,7 @@ def test_uneven_batch_and_widths(rng):
 
 
 def _plan_of(data: bytes):
-    comp, words, ng = kw.stage_waves([reference.compress(data)])
+    comp, words, ng = kw.stage_waves([reference.compress(data)], device="cpu")
     return comp, words.clone(), ng
 
 
