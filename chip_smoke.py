@@ -25,9 +25,11 @@ Every check raises on failure (nothing is caught), so any failure exits
 non-zero; without a GPU it exits non-zero before printing any result.
 
 The last two lines are one JSON object per line: the kernel table
-(each kernel's launches over the counted runs, max_abs_err, ms and
-plain_ms at its main-path shape, bound_ms = its bytes over 3.35 TB/s,
-library_ms null), then {"ok": true, "device": {...}}.
+(each kernel's launches over the counted runs, max_abs_err, ms (CUDA
+events around back-to-back wrapper calls), device_ms (the card's own
+time, torch.profiler) and plain_ms at its main-path shape of ``rows``
+rows, bound_ms = its bytes over 3.35 TB/s, library_ms null), then
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -116,9 +118,13 @@ def corpus_bytes(total: int, seed: int) -> bytes:
 
 def crc_phase(card, dev, seed):
     """Phase 3: the CRC kernel against its plain version and the native
-    CRC, including a 520-row panel read in place."""
+    CRC, including a 520-row panel read in place, and against its plain
+    version at the seq engine's launch widths."""
     from snappy_tpu_torch import native
     from snappy_tpu_torch.kernels import crc32c as kc
+    from snappy_tpu_torch.kernels import decode_seq as kds
+    from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.runtime import device_codec as dc
 
     rng = np.random.default_rng(seed)
     nb = 256
@@ -147,8 +153,25 @@ def crc_phase(card, dev, seed):
     pgot = kc.crc32c_chunks(view, torch.from_numpy(plens).to(dev))
     torch.cuda.synchronize()
     assert np.array_equal(pgot.cpu().numpy(), pwant), "pitched CRC"
+
+    # the seq engine's launch widths (decode, encode): more clusters than
+    # the card holds at once
+    widths = [dc._seq_width(kds.resident_rows, dev, kc.CHUNK),
+              dc._seq_width(kes.resident_rows, dev, kc.CHUNK)]
+    wide = torch.from_numpy(rng.integers(0, 256, (max(widths), kc.CHUNK),
+                                         dtype=np.uint8)).to(dev)
+    for w in widths:
+        wl = np.array(fixed + list(rng.integers(0, 65537, w - len(fixed))),
+                      np.int32)
+        wl_d = torch.from_numpy(wl).to(dev)
+        wgot = kc.crc32c_chunks(wide[:w], wl_d)
+        wplain = kc.crc32c_chunks_plain(wide[:w], wl_d)
+        torch.cuda.synchronize()
+        err = max(err, int((wgot - wplain).abs().max()))
+        assert torch.equal(wgot, wplain), f"CRC kernel != plain at {w} rows"
     log(card, f"crc32c: {nb} rows + 64 pitched rows bit-exact vs plain "
-              f"and native.crc32c (max_abs_err {err})")
+              f"and native.crc32c, {widths[0]} / {widths[1]} rows (the seq "
+              f"engine's widths) vs plain (max_abs_err {err})")
     return err
 
 
@@ -227,12 +250,35 @@ def flat_phase(card, dev, data):
         if rc[i] >= 0:
             assert (egot_h[i, hdrs[i]:clens[i]].tobytes()
                     == elem[i, hdrs[i]:clens[i]].tobytes()), f"enc row {i}"
+    # the runtime's shape (device_codec._upload_flat): meta cut to the
+    # trips the batch uses, B rows bucketed to its widest payload
+    rplan = runtime_plan(plan, max(c[2] for c in comp))
+    rgot = kf.decode_blocks_flat(*rplan, dst_max=65536)
+    torch.cuda.synchronize()
+    assert torch.equal(rgot, got), "flat decode, runtime shape != full shape"
     log(card, f"flat_exec: {len(comp)} decode plans (trips "
               f"{int((ntr & 0xFFFF).min())}-{int((ntr & 0xFFFF).max())}, {clamp} "
               f"subpanel words past the clamp row) and {len(entr)} encode "
               f"plans byte-identical to plain and to the native codec "
-              f"(max_abs_err {max(err_d, err_e)})")
-    return max(err_d, err_e), plan, eplan
+              f"(max_abs_err {max(err_d, err_e)}); the decode plans in the "
+              f"runtime's shape (meta {rplan[1].shape[1] // 8} of "
+              f"{kf.TRIP_CAP} trips, B {rplan[0].shape[1]} of "
+              f"{plan[0].shape[1]} bytes) give the same rows")
+    return max(err_d, err_e), plan, rplan, eplan
+
+
+def runtime_plan(plan, kmax: int):
+    """``plan`` as device_codec uploads it: meta cut to the trips the
+    batch uses (_upload_flat), B rows cut to the bucket of its widest
+    payload ``kmax`` (_bucket_cmax), both contiguous."""
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    b_u8, meta, starts, ntr = plan
+    used = max(1, int((ntr & 0xFFFF).max()))
+    rb = kf.rows_b_for(dc._bucket_cmax(kmax))
+    return (b_u8[:, : rb * 128].contiguous(),
+            meta[:, : 8 * used].contiguous(), starts, ntr)
 
 
 def _counters():
@@ -861,67 +907,34 @@ def seq_launches(dev, data: bytes) -> dict:
     return out
 
 
-# H100 SXM device memory rate (NVIDIA's data sheet, at 700 W)
-HBM_BYTES_PER_S = 3.35e12
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
-
-
-def kernel_bytes(name: str, args, out_max: int = 65536) -> int:
-    """Bytes a kernel's function must move for ``args`` (its wrapper's
-    arguments): each input byte the result depends on read once, each
-    output byte written once.  Rows count their stream or block lengths,
-    not their padded widths; outputs count whole rows, which the
-    functions define (zeros after the data)."""
-    from snappy_tpu_torch.kernels import decode_flat as kf
-    from snappy_tpu_torch.kernels import encode_seq as kes
-    from snappy_tpu_torch.kernels import match as km
-
-    nb = args[0].shape[0]
-    if name == "crc32c_rows":
-        rows, lens = args
-        return int(lens.sum()) + _nbytes(lens) + 8 * nb
-    if name == "flat_exec":
-        b_u8, meta, starts, ntrips = args
-        trips = int((ntrips & 0xFFFF).sum())
-        per_trip = 2 * kf.NSUB * kf.VEC * 4 + kf.NSUB * 4
-        return _nbytes(b_u8) + trips * per_trip + _nbytes(ntrips) \
-            + nb * out_max
-    if name == "seq_decode":
-        comp, starts, clens, dlens = args
-        used = clens.clamp(0, comp.shape[1]) - starts.clamp(0, comp.shape[1])
-        return int(used.clamp(min=0).sum()) + 12 * nb + nb * (out_max + 4)
-    if name == "seq_encode":
-        blocks, lens = args
-        return int(lens.sum()) + 4 * nb \
-            + nb * (kes.comp_width(blocks.shape[1]) + 8)
-    if name == "wavegroup":
-        comp, words, ngroups = args
-        # a row's stream ends at its last nonzero byte (or a few bytes on)
-        idx = torch.arange(1, comp.shape[1] + 1, device=comp.device)
-        used = ((comp != 0) * idx).amax(dim=1)
-        return int(used.sum()) + int(ngroups.sum()) * 16 * 4 \
-            + _nbytes(ngroups) + nb * out_max
-    if name == "match_cands":
-        words, npos = args
-        return _nbytes(words) + _nbytes(npos) + nb * km._check(*args) * 4
-    raise KeyError(name)
-
-
-def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
+def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
+                 match):
     """Phase 14: each kernel against its plain version at the main path's
     shapes, alternating plain, kernel, kernel, plain (a serial walk's
-    plain once, before the kernel): BATCH rows for the CRC and flat
-    kernels; the sequential, wave and match kernels at SEQ_ROWS corpus
-    rows (their first launch width) and at their engine's width (``wave``
-    and ``match``: the 64-row and wide arguments; the sequential plain
-    times at the width are phases 5-6's single call on the same launch).
-    Each kernel's bound: its bytes (kernel_bytes) over the card's memory
-    rate; the integer and byte work per byte is far under
-    the card's operation rates, so bytes bound all six.  Returns, per
-    kernel at its main-path shape: ms, plain_ms, bound_ms, rows."""
+    plain once, before the kernel).  The main path's shape ("main", the
+    table's row): the CRC at BATCH rows of the id engine's pitched panel,
+    the flat kernel on BATCH decode plans as the runtime uploads them
+    (``rplan``: meta cut to the used trips, B rows bucketed); the
+    sequential, wave and match kernels at their engine's width (the card's
+    resident rows; ``wave`` and ``match``: the 64-row and wide arguments;
+    the sequential plain times at the width are phases 5-6's single call
+    on the same launch).  Besides: the CRC at one row (a 4 KiB and a
+    64 KiB length, a checkpoint tensor's call) and at the seq engine's
+    width, the flat kernel on the same plans at the full trip cap and
+    the widest B rows (``plan``, as phase 4 stages them) and on BATCH
+    encode-replay plans, and the sequential, wave and match kernels at
+    SEQ_ROWS rows.
+    Each kernel's time two ways: ``ms``, CUDA events around back-to-back
+    calls of its wrapper (the host's time between launches included);
+    ``device_ms``, the card's own time from torch.profiler
+    (``bench.kernel_cost.device_ms``).  Its bound: its bytes
+    (``bench.kernel_cost.kernel_bytes``) over the card's memory rate; the
+    integer and byte work per byte is far under the card's operation
+    rates, so bytes bound all six.  Returns {name or name.label: ms,
+    device_ms, plain_ms, bound_ms, rows}, the plain name at the main
+    path's shape."""
+    from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
+                                                    device_ms, kernel_bytes)
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.kernels import decode_seq as kds
@@ -931,10 +944,15 @@ def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
     from snappy_tpu_torch.runtime import device_codec as dc
 
     rng = np.random.default_rng(7)
-    panel = torch.from_numpy(
-        rng.integers(0, 256, (dc.BATCH, 520 * 128), dtype=np.uint8)).to(dev)
-    rows = panel[:, :kc.CHUNK]
+    seq_rows = dc._seq_width(kds.resident_rows, dev, 65536)
+    panel = torch.from_numpy(rng.integers(
+        0, 256, (max(dc.BATCH, seq_rows), 520 * 128), dtype=np.uint8)).to(dev)
+    rows = panel[: dc.BATCH, :kc.CHUNK]
     lens = torch.full((dc.BATCH,), kc.CHUNK, dtype=torch.int32, device=dev)
+    wide = panel[:seq_rows, :kc.CHUNK].contiguous()  # the decoded rows
+    wide_lens = torch.full((seq_rows,), kc.CHUNK, dtype=torch.int32,
+                           device=dev)
+    one = wide[:1]
     out = {}
     fns = {
         "crc32c_rows": (kc.crc32c_chunks, kc.crc32c_chunks_plain, {}),
@@ -947,21 +965,32 @@ def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
                       kw.decode_blocks_wavegroup_plain, {"out_max": 65536}),
         "match_cands": (km.find_candidates, km.find_candidates_plain, {}),
     }
-    # (name, shape label, args, kernel iters, plain iters or a plain ms)
-    runs = [("crc32c_rows", "", (rows, lens), 200, 5),
-            ("flat_exec", "", plan, 200, 5),
-            ("seq_decode", "64", seq64["seq_decode"], 20, 1),
-            ("seq_decode", "wide", seq_wide["seq_decode"][0], 10,
-             seq_wide["seq_decode"][1]),
-            ("seq_encode", "64", seq64["seq_encode"], 20, 1),
-            ("seq_encode", "wide", seq_wide["seq_encode"][0], 10,
-             seq_wide["seq_encode"][1]),
-            ("wavegroup", "64", wave[0], 50, 2),
-            ("wavegroup", "wide", wave[1], 20, 2),
-            ("match_cands", "64", match[0], 50, 5),
-            ("match_cands", "wide", match[1], 20, 3)]
-    for name, shape, args, k_iters, plain_it in runs:
+    enc_kw = {"dst_max": 81920, "out_rows": 640}
+    # (name, shape label, args, kernel iters, plain iters or a plain ms,
+    #  keyword arguments other than the kernel's own)
+    runs = [("crc32c_rows", "main", (rows, lens), 200, 5, None),
+            ("crc32c_rows", "1 row 4 KiB",
+             (one, torch.tensor([4096], dtype=torch.int32, device=dev)),
+             200, 5, None),
+            ("crc32c_rows", "1 row 64 KiB", (one, wide_lens[:1]), 200, 5,
+             None),
+            ("crc32c_rows", "seq width", (wide, wide_lens), 100, 2, None),
+            ("flat_exec", "main", rplan, 200, 5, None),
+            ("flat_exec", "full trip cap", plan, 200, 5, None),
+            ("flat_exec", "encode replay", eplan, 200, 5, enc_kw),
+            ("seq_decode", "64", seq64["seq_decode"], 20, 1, None),
+            ("seq_decode", "main", seq_wide["seq_decode"][0], 10,
+             seq_wide["seq_decode"][1], None),
+            ("seq_encode", "64", seq64["seq_encode"], 20, 1, None),
+            ("seq_encode", "main", seq_wide["seq_encode"][0], 10,
+             seq_wide["seq_encode"][1], None),
+            ("wavegroup", "64", wave[0], 50, 2, None),
+            ("wavegroup", "main", wave[1], 20, 2, None),
+            ("match_cands", "64", match[0], 50, 5, None),
+            ("match_cands", "main", match[1], 20, 3, None)]
+    for name, shape, args, k_iters, plain_it, kw_over in runs:
         kern_fn, plain_fn, kw_args = fns[name]
+        kw_args = kw_over or kw_args
         kern = lambda: kern_fn(*args, **kw_args)  # noqa: E731
         plain = lambda: plain_fn(*args, **kw_args)  # noqa: E731
         nrows = args[0].shape[0]
@@ -983,22 +1012,20 @@ def kernel_times(card, dev, plan, eplan, seq64, seq_wide, wave, match):
             k2 = time_ms(kern, k_iters)
             plain_ms = plain_it
             plain_txt = f"plain {plain_ms:.1f} ms (phases 5-6, one call)"
-        nbytes = kernel_bytes(name, args)
+        dev_ms = device_ms([kern], min(k_iters, 50))
+        nbytes = kernel_bytes(name, args, kw_args.get("dst_max", 65536),
+                              kw_args.get("out_rows", 520))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        res = {"ms": min(k1, k2), "plain_ms": plain_ms, "bound_ms": bound,
-               "rows": nrows}
-        if shape != "64":  # the main path's shape goes into the table
-            out[name] = res
-        else:
-            out[f"{name}.64"] = res
-        log(card, f"{name} at [{nrows} rows]: kernel {k1:.4f}/{k2:.4f} ms, "
-                  f"{plain_txt}; bound {bound:.4f} ms ({nbytes} B at "
-                  f"{HBM_BYTES_PER_S / 1e12} TB/s), "
-                  f"{nrows * 65536 / min(k1, k2) / 1e6:.3f} GB/s of 64 KiB rows")
-    enc_k = time_ms(lambda: kf.decode_blocks_flat(
-        *eplan, dst_max=81920, out_rows=640), 200)
-    log(card, f"flat_exec encode replay at [{eplan[0].shape[0]} rows]: "
-              f"kernel {enc_k:.4f} ms")
+        out[name if shape == "main" else f"{name}.{shape}"] = {
+            "ms": min(k1, k2), "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "rows": nrows}
+        dev_txt = ("no device time recorded by the profiler"
+                   if dev_ms is None else f"{dev_ms:.4f} ms on the card "
+                                          f"(profiler)")
+        log(card, f"{name} ({shape}) at [{nrows} rows]: kernel "
+                  f"{k1:.4f}/{k2:.4f} ms a call, {dev_txt}, "
+                  f"{plain_txt}; bound {bound:.4f} ms ({nbytes} B "
+                  f"at {HBM_BYTES_PER_S / 1e12} TB/s)")
     return out
 
 
@@ -1344,7 +1371,7 @@ def main() -> int:
     full = corpus_bytes(max(args.id_mib, args.seq_mib, args.wave_mib,
                             args.devmatch_mib, args.stream_mib) << 20,
                         args.seed)
-    flat_err, plan, eplan = flat_phase(card, dev, flat_data)
+    flat_err, plan, rplan, eplan = flat_phase(card, dev, flat_data)
     seq_dec_err, dec64, dec_wide, dec_plain_s = seq_decode_phase(
         card, dev, flat_data, full)
     seq_enc_err, enc64, enc_wide, enc_plain_s = seq_encode_phase(
@@ -1366,7 +1393,7 @@ def main() -> int:
               f"{dict(dc.HOST_FALLBACKS)}")
 
     times = kernel_times(
-        card, dev, plan, eplan,
+        card, dev, plan, rplan, eplan,
         {"seq_decode": dec64, "seq_encode": enc64},
         {"seq_decode": (dec_wide, dec_plain_s * 1e3),
          "seq_encode": (enc_wide, enc_plain_s * 1e3)},
@@ -1394,7 +1421,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
-         "library_ms": None}
+         "library_ms": None, "device_ms": times[name]["device_ms"],
+         "rows": times[name]["rows"]}
         for name in KERNELS]}
     log(card, "rates GB/s: " + json.dumps(rates))
     print(json.dumps(table), flush=True)

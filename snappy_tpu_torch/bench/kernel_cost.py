@@ -1,0 +1,158 @@
+"""What a kernel launch costs and the least it could cost: the helpers
+that ``chip_smoke.py`` and the profilers of this folder share.
+
+- ``kernel_bytes``: the bytes a kernel's function must move for one
+  launch's arguments, so its bound is ``kernel_bytes / HBM_BYTES_PER_S``;
+- ``device_ms``: the card's own time of a call (``torch.profiler``);
+- ``replay``: CUDA-event and host-clock time of launches run back to back.
+
+Imports torch and the port's kernel modules only inside the functions,
+so a profiler that runs another checkout's package (``--root``) loads
+this file by path and measures that package with it.
+"""
+
+from __future__ import annotations
+
+import time
+
+# H100 SXM device memory rate (NVIDIA's data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def flat_copied_bytes(b_u8, meta, starts, ntrips, dst_max: int,
+                      out_rows: int) -> int:
+    """Bytes of B that a flat plan's valid pieces copy to ``[0,
+    dst_max)``: each piece's lanes whose destination lies before
+    ``dst_max`` and whose source lies inside B (a source past B gives 0,
+    read from nowhere).  The arithmetic of ``decode_blocks_flat_plain``,
+    counted per piece rather than per byte."""
+    import torch
+
+    from snappy_tpu_torch.kernels import decode_flat as kf
+
+    nb, nbytes = b_u8.shape
+    trip_cap = meta.shape[1] // (2 * kf.NSUB)
+    n = (ntrips.to(torch.int64) & 0xFFFF).clamp(max=trip_cap)
+    t_used = int(n.max()) if nb else 0
+    if t_used == 0:
+        return 0
+    m = meta.to(torch.int64).reshape(nb, trip_cap, 2, kf.NSUB, kf.VEC)
+    a_w, b_w = m[:, :t_used, 0], m[:, :t_used, 1]
+    st = starts.to(torch.int64).reshape(nb, 8 * kf.VEC)[:, : kf.NSUB * t_used]
+    st = st.reshape(nb, t_used, kf.NSUB)
+    S = st & 1023
+    Dq = (st >> 10) & 1023
+    D = Dq.clamp(max=out_rows - kf.VEC)
+    t_idx = torch.arange(t_used, device=b_u8.device)
+    valid = (((b_w & kf._VALID) != 0)
+             & (t_idx[None, :] < n[:, None])[..., None, None])
+    phi = (kf.VEC - ((a_w >> 7) & 127)) & (kf.VEC - 1)
+    src0 = (S[..., None] + (a_w & 127)) * kf.VEC + phi
+    dst0 = (D[..., None] + ((b_w >> 14) & 127) + (Dq - D)[..., None]) * kf.VEC
+    dphi = b_w & 127
+    length = ((b_w >> 7) & 127) + 1
+    # lanes dphi .. dphi + length - 1 while dst0 + lane < dst_max and
+    # src0 + lane < nbytes
+    room = torch.minimum(dst_max - dst0, nbytes - src0) - dphi
+    return int(torch.where(valid, room.clamp(min=0).minimum(length), 0).sum())
+
+
+def kernel_bytes(name: str, args, out_max: int = 65536,
+                 out_rows: int = 520) -> int:
+    """Bytes a kernel's function must move for ``args`` (its wrapper's
+    positional arguments): each input byte the result depends on read
+    once, each output byte written once.  Rows count their stream or
+    block lengths, not their padded widths, and a flat plan the B bytes
+    its pieces copy; outputs count whole rows, which the functions
+    define (zeros after the data).  ``out_max`` is the output row's
+    bytes (the flat kernel's ``dst_max``), ``out_rows`` the flat
+    kernel's compose panel."""
+    import torch
+
+    from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import match as km
+
+    nb = args[0].shape[0]
+    if name == "crc32c_rows":
+        rows, lens = args
+        return int(lens.sum()) + _nbytes(lens) + 8 * nb
+    if name == "flat_exec":
+        b_u8, meta, starts, ntrips = args
+        trips = int((ntrips & 0xFFFF).sum())
+        per_trip = 2 * kf.NSUB * kf.VEC * 4 + kf.NSUB * 4
+        return flat_copied_bytes(*args, out_max, out_rows) \
+            + trips * per_trip + _nbytes(ntrips) + nb * out_max
+    if name == "seq_decode":
+        comp, starts, clens, dlens = args
+        used = clens.clamp(0, comp.shape[1]) - starts.clamp(0, comp.shape[1])
+        return int(used.clamp(min=0).sum()) + 12 * nb + nb * (out_max + 4)
+    if name == "seq_encode":
+        blocks, lens = args
+        return int(lens.sum()) + 4 * nb \
+            + nb * (kes.comp_width(blocks.shape[1]) + 8)
+    if name == "wavegroup":
+        comp, words, ngroups = args
+        # a row's stream ends at its last nonzero byte (or a few bytes on)
+        idx = torch.arange(1, comp.shape[1] + 1, device=comp.device)
+        used = ((comp != 0) * idx).amax(dim=1)
+        return int(used.sum()) + int(ngroups.sum()) * 16 * 4 \
+            + _nbytes(ngroups) + nb * out_max
+    if name == "match_cands":
+        words, npos = args
+        return _nbytes(words) + _nbytes(npos) + nb * km._check(*args) * 4
+    raise KeyError(name)
+
+
+def device_ms(fns, reps: int = 1, tries: int = 3) -> float | None:
+    """Mean card milliseconds of a call of ``fns`` (a list of callables,
+    each run ``reps`` times after one warm-up call of each): the sum of
+    the device intervals (kernels, copies, fills) torch.profiler records.
+    Unlike CUDA events around the calls it leaves out the host's time
+    between launches.  None when ``tries`` profiled runs all recorded
+    no device interval: the profiler's device tracing (CUPTI) is not
+    always given to a process, and then no device time was measured."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if evs:
+            return (sum(e.time_range.elapsed_us() for e in evs)
+                    / (reps * len(fns)) / 1e3)
+    return None
+
+
+def replay(launches, reps: int = 3) -> list:
+    """[(event seconds, host seconds), ...] of ``reps`` back-to-back runs
+    of ``launches``: CUDA events around each run, and the host clock
+    around its loop before the closing sync (what issuing the launches
+    costs the calling thread)."""
+    import torch
+
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        for launch in launches:
+            launch()
+        host = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        out.append((start.elapsed_time(end) / 1e3, host))
+    return out

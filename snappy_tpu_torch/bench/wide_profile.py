@@ -35,20 +35,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 
 def _replay(launches, reps: int = 3) -> list:
-    """Seconds of each back-to-back replay of ``launches``."""
-    import torch
+    """Seconds of each back-to-back replay of ``launches`` (CUDA events)."""
+    from kernel_cost import replay
 
-    out = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for launch in launches:
-            launch()
-        end.record()
-        torch.cuda.synchronize()
-        out.append(start.elapsed_time(end) / 1e3)
-    return out
+    return [ev for ev, _host in replay(launches, reps)]
 
 
 def _ms(fn, iters: int = 20) -> float:

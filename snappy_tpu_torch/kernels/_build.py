@@ -122,7 +122,7 @@ def _build(src_hash: str) -> None:
 def _declare(lib) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
     lib.snc_crc32c_rows.restype = ctypes.c_int
-    lib.snc_crc32c_rows.argtypes = [p, i64, i32, p, p, p, p, i32, p]
+    lib.snc_crc32c_rows.argtypes = [p, i64, i32, p, p, p, p, p, i32, p]
     lib.snc_flat_exec.restype = ctypes.c_int
     lib.snc_flat_exec.argtypes = [p, i64, p, i32, p, p, p, i64, i64, i32,
                                   i32, p]

@@ -7,10 +7,13 @@ gives the CRC-32C of each row of a uint8 ``[B, W]`` tensor (``W <=
 tensor's ``stride(0)``, so the 64 KiB image of a 520-row staging panel
 is checksummed in place (``panel[:, :65536]``).
 
-On a CUDA tensor the wrapper launches ``csrc/crc32c.cu`` (one CTA per
-row, a table CRC per 256-byte segment, GF(2) shift-combine); on a CPU
-tensor it runs the plain version, a transcription into torch of the
-JAX package's GF(2) matrix form.  There is no other switch.
+On a CUDA tensor the wrapper launches ``csrc/crc32c.cu`` (a cluster of
+two CTAs per row; each row the start of a virtual 64 KiB row, a table
+CRC per 128-byte segment run as interleaved chains, each segment moved
+to the virtual row's end by a GF(2) product, combined by xor, then per
+row the zero suffix taken back and the init term folded in); on a CPU
+tensor it runs the plain version, a transcription into torch of the JAX
+package's GF(2) matrix form.  There is no other switch.
 """
 
 from __future__ import annotations
@@ -22,10 +25,9 @@ import torch
 
 from snappy_tpu_torch.spec.crc32c import _TABLE, crc32c as crc_oracle, crc_shift_matrix
 
-SEG = 256  # segment length in bytes
+SEG = 256  # segment length in bytes (the plain version's GF(2) form)
 NSEG = 256  # segments per 64 KiB chunk
 CHUNK = SEG * NSEG
-_SHIFT_BITS = 16  # shift matrices for 2**j bytes, j < 16
 
 # kernel launches made by crc32c_chunks (one per CUDA call)
 launches = 0
@@ -68,23 +70,63 @@ def _constants():
                     a[r] ^= a[col]
         minv[j] = a[:, 32:]
 
-    zero_crc = np.zeros(CHUNK + 1, dtype=np.uint32)
-    c = np.uint32(0xFFFFFFFF)
-    for n in range(1, CHUNK + 1):
-        c = _TABLE[c & 0xFF] ^ (c >> np.uint32(8))
-        zero_crc[n] = c ^ np.uint32(0xFFFFFFFF)
-    return seg_m, comb, const, minv, zero_crc
+    return seg_m, comb, const, minv, _zero_crc_np()
+
+
+def _apply(cols: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """A GF(2)-linear map of uint32 words, given by ``cols`` (uint32 [32],
+    the image of bit i at i), applied to each word of ``v``: four lookups
+    in 256-entry byte tables."""
+    byte = np.arange(256, dtype=np.uint32)
+    out = np.zeros_like(v)
+    for p in range(4):
+        tab = np.zeros(256, dtype=np.uint32)
+        for b in range(8):
+            tab ^= np.where((byte >> np.uint32(b)) & 1, cols[8 * p + b],
+                            np.uint32(0)).astype(np.uint32)
+        out ^= tab[(v >> np.uint32(8 * p)) & np.uint32(0xFF)]
+    return out
+
+
+def _orbit(cols: np.ndarray, v0: int, n: int) -> np.ndarray:
+    """uint32 [n + 1]: ``v0`` taken k times through the linear map
+    ``cols``, at index k.  Doubling: with the first m words known and the
+    map raised to the m-th power, one vectorised application gives the
+    next m, and the map applied to its own columns squares it."""
+    out = np.array([v0], dtype=np.uint32)
+    while len(out) < n + 1:
+        out = np.concatenate([out, _apply(cols, out)])
+        cols = _apply(cols, cols)
+    return out[: n + 1]
+
+
+_BITS = np.uint32(1) << np.arange(32, dtype=np.uint32)
+# one zero byte through the reflected CRC register, and its inverse (a
+# table entry's top byte names its index)
+_ZERO_BYTE = _TABLE[_BITS & np.uint32(0xFF)] ^ (_BITS >> np.uint32(8))
+_TOP_INDEX = np.zeros(256, dtype=np.uint32)
+_TOP_INDEX[_TABLE >> np.uint32(24)] = np.arange(256, dtype=np.uint32)
+_ZERO_BYTE_INV = (((_BITS ^ _TABLE[_TOP_INDEX[_BITS >> np.uint32(24)]])
+                   << np.uint32(8)) | _TOP_INDEX[_BITS >> np.uint32(24)])
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_constants_np() -> tuple[np.ndarray, np.ndarray]:
-    """(table uint32[256], shift columns uint32[16, 32]): column i of
-    shift j is the image of CRC bit i after 2**j zero bytes."""
-    shifts = np.zeros((_SHIFT_BITS, 32), dtype=np.uint32)
-    for j in range(_SHIFT_BITS):
-        m = crc_shift_matrix(8 * (1 << j)).astype(np.uint64)
-        shifts[j] = (m << np.arange(32, dtype=np.uint64)[:, None]).sum(axis=0)
-    return _TABLE.astype(np.uint32), shifts
+def _zero_crc_np() -> np.ndarray:
+    """uint32 [CHUNK + 1]: the CRC-32C of n zero bytes at index n."""
+    return _orbit(_ZERO_BYTE, 0xFFFFFFFF, CHUNK) ^ np.uint32(0xFFFFFFFF)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_constants_np() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(zshift, unshift, zero_crc), uint32 [CHUNK + 1] each, in the
+    reflected form (bit 31 is x^0): zshift[n] is x^(8 (CHUNK - n)) mod P,
+    x^0 advanced through the CHUNK - n zero bytes that follow byte n - 1
+    of a virtual 64 KiB row (a zero byte is a product by x^8);
+    unshift[n] is its inverse, x^0 taken back through those bytes;
+    zero_crc[n] is the CRC-32C of n zero bytes."""
+    zshift = _orbit(_ZERO_BYTE, 1 << 31, CHUNK)[::-1].copy()
+    unshift = _orbit(_ZERO_BYTE_INV, 1 << 31, CHUNK)[::-1].copy()
+    return zshift, unshift, _zero_crc_np()
 
 
 _dev_consts: dict = {}
@@ -92,10 +134,9 @@ _dev_consts: dict = {}
 
 def _kernel_constants(device: torch.device):
     if device not in _dev_consts:
-        table, shifts = _kernel_constants_np()
-        _dev_consts[device] = (
-            torch.from_numpy(table.view(np.int32).copy()).to(device),
-            torch.from_numpy(shifts.view(np.int32).copy()).to(device))
+        _dev_consts[device] = tuple(
+            torch.from_numpy(a.view(np.int32).copy()).to(device)
+            for a in _kernel_constants_np())
     return _dev_consts[device]
 
 
@@ -159,18 +200,23 @@ def crc32c_chunks(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {rows.device}")
     from snappy_tpu_torch.kernels import _build
 
+    dev = rows.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return crc32c_chunks(rows, lengths)
     if nb and rows.stride(1) != 1:
         raise ValueError("rows must be contiguous along the row")
-    lengths = lengths.to(device=rows.device, dtype=torch.int32).contiguous()
-    out = torch.empty(nb, dtype=torch.int64, device=rows.device)
+    if (lengths.dtype != torch.int32 or lengths.device != dev
+            or not lengths.is_contiguous()):
+        lengths = lengths.to(device=dev, dtype=torch.int32).contiguous()
+    out = torch.empty(nb, dtype=torch.int64, device=dev)
     if nb == 0:
         return out
-    table, shifts = _kernel_constants(rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = _build.lib().snc_crc32c_rows(
-            rows.data_ptr(), rows.stride(0), width, lengths.data_ptr(),
-            table.data_ptr(), shifts.data_ptr(), out.data_ptr(), nb, stream)
+    zshift, unshift, zero_crc = _kernel_constants(dev)
+    rc = _build.lib().snc_crc32c_rows(
+        rows.data_ptr(), rows.stride(0), width, lengths.data_ptr(),
+        zshift.data_ptr(), unshift.data_ptr(), zero_crc.data_ptr(),
+        out.data_ptr(), nb, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "crc32c_rows")
     launches += 1
     return out

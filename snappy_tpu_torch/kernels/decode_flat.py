@@ -10,8 +10,9 @@ runs the plan.  The contract is the JAX package's ``execute_flat_np``
 
 ``decode_blocks_flat`` launches ``csrc/flat_exec.cu`` on a CUDA tensor
 and runs the plain torch gather/scatter on a CPU tensor.  The kernel
-takes the uint8 B buffer as staged (no int32 pre-cast) and writes uint8
-into a zeroed output.
+takes the uint8 B buffer as staged (no int32 pre-cast) and builds each
+8 KiB slab of an output row in shared memory, written out once (zeros
+where no piece writes).
 """
 
 from __future__ import annotations
@@ -190,23 +191,24 @@ def decode_blocks_flat(b_u8, meta, starts, ntrips, dst_max: int,
         raise ValueError(f"unsupported device {b_u8.device}")
     from snappy_tpu_torch.kernels import _build
 
-    if nb > 65535:
-        raise ValueError(f"{nb} rows exceed one launch (65535)")
-    b_u8, meta, starts, ntrips = (t.contiguous()
+    dev = b_u8.device
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return decode_blocks_flat(b_u8, meta, starts, ntrips, dst_max,
+                                      out_rows, out)
+    b_u8, meta, starts, ntrips = (t if t.is_contiguous() else t.contiguous()
                                   for t in (b_u8, meta, starts, ntrips))
     if out is None:
-        out = torch.empty(nb, dst_max, dtype=torch.uint8, device=b_u8.device)
+        out = torch.empty(nb, dst_max, dtype=torch.uint8, device=dev)
     elif nb and dst_max and out.stride(1) != 1:
         raise ValueError("out must be contiguous along the row")
     if nb == 0 or dst_max == 0:
         return out
-    trip_cap = meta.shape[1] // (2 * NSUB)
-    with torch.cuda.device(b_u8.device):
-        stream = torch.cuda.current_stream(b_u8.device).cuda_stream
-        rc = _build.lib().snc_flat_exec(
-            b_u8.data_ptr(), b_u8.shape[1], meta.data_ptr(), trip_cap,
-            starts.data_ptr(), ntrips.data_ptr(), out.data_ptr(),
-            out.stride(0), dst_max, out_rows, nb, stream)
+    rc = _build.lib().snc_flat_exec(
+        b_u8.data_ptr(), b_u8.shape[1], meta.data_ptr(),
+        meta.shape[1] // (2 * NSUB), starts.data_ptr(), ntrips.data_ptr(),
+        out.data_ptr(), out.stride(0), dst_max, out_rows, nb,
+        torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flat_exec")
     launches += 1
     return out

@@ -68,12 +68,17 @@ def resident_rows(device, out_max: int) -> int:
     return _build.resident_rows("snc_seq_decode_blocks_per_sm", device, out_max)
 
 
-def stage_decode(comp, starts, clens, dlens, device="cpu"):
+def stage_decode(comp, starts, clens, dlens, device=None):
     """The port's tensors for a batch staged as numpy arrays (the JAX
     tests' ``comp/starts/clens/dlens``): uint8 ``[B, cmax]`` and three
-    int32 ``[B]`` on ``device``."""
+    int32 ``[B]`` on ``device`` (``device.resolve``: the card unless
+    asked for the CPU)."""
+    from snappy_tpu_torch.device import resolve
+
+    dev = resolve(device)
+
     def put(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
 
     return (put(comp, np.uint8), put(starts, np.int32), put(clens, np.int32),
             put(dlens, np.int32))

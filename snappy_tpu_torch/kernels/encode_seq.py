@@ -65,11 +65,15 @@ def comp_width(bmax: int) -> int:
     return (max_encoded_len(bmax) + 15) & ~15
 
 
-def stage_encode(blocks, lens, device="cpu"):
+def stage_encode(blocks, lens, device=None):
     """The port's tensors for a batch staged as numpy arrays (the JAX
-    tests' ``blocks/lens``): uint8 ``[B, bmax]`` and int32 ``[B]``."""
-    return (torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(device),
-            torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(device))
+    tests' ``blocks/lens``): uint8 ``[B, bmax]`` and int32 ``[B]`` on
+    ``device`` (``device.resolve``: the card unless asked for the CPU)."""
+    from snappy_tpu_torch.device import resolve
+
+    dev = resolve(device)
+    return (torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(dev))
 
 
 def _check(blocks, lens) -> None:

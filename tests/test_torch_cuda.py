@@ -77,6 +77,48 @@ def test_crc_kernel_pitched_and_unaligned(cuda_device, rng):
         kc.crc32c_chunks(panel_d[:, : kc.CHUNK : 2], lens_d)
 
 
+_CRC_EDGE = [0, 1, 15, 16, 17, 255, 256, 257, 65535, 65536]
+
+
+@pytest.mark.parametrize("nrows", [1, 64, 395, 396, 397])
+def test_crc_kernel_widths_and_edge_lengths(cuda_device, rng, nrows):
+    """The clustered CRC at one row, the id engine's 64 and the seq
+    engine's 396 +- 1 rows: every edge length (the empty row, a partial
+    first segment, 16-byte boundaries, a full row) and random lengths,
+    bytes past each length random (they must not reach the checksum)."""
+    lengths = np.array((_CRC_EDGE * (nrows // len(_CRC_EDGE) + 1))[:nrows],
+                       np.int32)
+    lengths[len(_CRC_EDGE) :] = rng.integers(0, 65537, max(
+        0, nrows - len(_CRC_EDGE)))
+    if nrows == 1:
+        lengths[0] = 4096
+    rows = rng.integers(0, 256, (nrows, kc.CHUNK), dtype=np.uint8)
+    rows_d = torch.from_numpy(rows).to(cuda_device)
+    lens_d = torch.from_numpy(lengths).to(cuda_device)
+    got = kc.crc32c_chunks(rows_d, lens_d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kc.crc32c_chunks_plain(rows_d, lens_d))
+    assert np.array_equal(got.cpu().numpy(), _native_crcs(rows, lengths))
+
+
+@pytest.mark.parametrize("width,off", [(4096, 0), (4096, 5), (1000, 1),
+                                       (65536, 7), (65536, 15)])
+def test_crc_kernel_narrow_and_unaligned(cuda_device, rng, width, off):
+    """Rows narrower than 64 KiB (lengths clamped to the width, negative
+    ones to 0) read through a pitched view at every base alignment."""
+    lengths = np.array([0, 1, 15, 16, 17, 255, 256, 257, width - 1, width,
+                        width + 100, -5], np.int32)
+    pitch = width + 40
+    buf = rng.integers(0, 256, (len(lengths), pitch + 16), dtype=np.uint8)
+    view = torch.from_numpy(buf).to(cuda_device)[:, off : off + width]
+    got = kc.crc32c_chunks(view, torch.from_numpy(lengths).to(cuda_device))
+    torch.cuda.synchronize()
+    clamped = np.clip(lengths, 0, width)
+    assert np.array_equal(got.cpu().numpy(),
+                          _native_crcs(buf[:, off:], clamped))
+    assert int(got.min()) >= 0 and int(got.max()) < 2**32
+
+
 def _decode_plans(data, nb):
     fr = native.compress_framed(data)
     chunks, _ = dc._scan_frames(fr)
@@ -133,6 +175,83 @@ def test_flat_kernel_matches_plain_encode(cuda_device):
     for i in range(n):
         if rc[i] >= 0:
             assert got_h[i, : clens[i]].tobytes() == elem[i, : clens[i]].tobytes()
+
+
+def _encode_plans(data, n):
+    blocks = np.frombuffer(data[: n * 65536], np.uint8).reshape(n, 65536)
+    b_u8 = np.empty((n, ke.RB_ENC * 128), np.uint8)
+    meta = np.empty((n, 8 * ke.ENC_TRIP_CAP, 128), np.int32)
+    starts = np.zeros((n, 8, 128), np.int32)
+    elem = np.empty((n, native.max_compressed_length(65536) + 8), np.uint8)
+    clens, hdrs, rc = (np.zeros(n, np.int64) for _ in range(3))
+    native.stage_flat_enc_batch(blocks, np.full(n, 65536, np.int64),
+                                ke.RB_ENC, meta, starts, b_u8,
+                                ke.TAG_ROWS * 128, elem, clens, hdrs, rc)
+    return b_u8, meta, starts, np.maximum(rc, 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["decode", "encode"])
+def test_flat_kernel_trip_counts_and_clamp(cuda_device, kind):
+    """Decode and encode-replay plans at the runtime's shape (meta cut to
+    the used trips) and at the full trip cap, with rows of ntrips 0,
+    ntrips past the cap (the cap runs), the aligned-trip high half set,
+    and a hand-made piece whose subpanel starts past the compose clamp."""
+    if kind == "decode":
+        b_u8, meta, starts, ntr, _rc, _want = _decode_plans(_corpus(27), 12)
+        dst, out_rows = 65536, kf.OUT_ROWS
+    else:
+        b_u8, meta, starts, ntr = _encode_plans(_corpus(28), 12)
+        dst, out_rows = ke.ENC_DST_MAX, ke.OUT_ROWS_ENC
+    ntr = ntr.copy()
+    cap = meta.shape[1] // 8
+    for i, n in enumerate(ntr & 0xFFFF):  # staging leaves unused trips as
+        meta[i, 8 * n :] = 0               # they were: make them empty
+    ntr[0] = 0
+    ntr[1] = cap + 5
+    ntr[2] |= 3 << 16
+    # row 3: one piece at destination row Dq + 5, Dq past out_rows - 128
+    meta[3], starts[3], ntr[3] = 0, 0, 1
+    dq = out_rows - 128 + 40
+    meta[3, 0, 5] = 9 | (17 << 7)
+    meta[3, 4, 5] = 3 | (99 << 7) | (5 << 14) | kf._VALID
+    starts[3, 0, 0] = 200 | (dq << 10) | (17 << 20)
+    used = max(1, int(np.delete(ntr & 0xFFFF, 1).max()))
+    for m in (meta, np.ascontiguousarray(meta[:, : 8 * used])):
+        plan = kf.plan_from_numpy(b_u8, m, starts, ntr, cuda_device)
+        got = kf.decode_blocks_flat(*plan, dst_max=dst, out_rows=out_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kf.decode_blocks_flat_plain(
+            *plan, dst_max=dst, out_rows=out_rows))
+        assert not got[0].any()
+        row3 = got[3].cpu().numpy()
+        src = (200 + 9) * 128 + (128 - 17)
+        want = np.zeros(dst, np.uint8)
+        at = (dq + 5) * 128
+        if at < dst:
+            want[at + 3 : at + 103] = b_u8[3, src + 3 : src + 103][
+                : max(0, dst - at - 3)]
+        assert np.array_equal(row3, want)
+
+
+@pytest.mark.parametrize("dst_max", [65536, 65535, 4097, 8193])
+def test_flat_kernel_out_view_odd_length(cuda_device, dst_max):
+    """out= a row-strided view of a larger buffer at an odd base and an
+    odd pitch, and dst_max not a multiple of 16 or of the slab: bytes past
+    dst_max are dropped and the buffer around the view is untouched."""
+    b_u8, meta, starts, ntr, _rc, _want = _decode_plans(_corpus(29), 9)
+    plan = kf.plan_from_numpy(b_u8, meta, starts, ntr, cuda_device)
+    nb = b_u8.shape[0]
+    buf = torch.full((nb + 2, dst_max + 21), 9, dtype=torch.uint8,
+                     device=cuda_device)
+    view = buf[1:-1, 3 : 3 + dst_max]
+    res = kf.decode_blocks_flat(*plan, dst_max=dst_max, out=view)
+    torch.cuda.synchronize()
+    assert res.data_ptr() == view.data_ptr()
+    assert torch.equal(view, kf.decode_blocks_flat_plain(*plan,
+                                                         dst_max=dst_max))
+    assert int(buf[0].min()) == 9 and int(buf[-1].min()) == 9
+    assert int(buf[1:-1, :3].min()) == 9
+    assert int(buf[1:-1, 3 + dst_max :].min()) == 9
 
 
 def _seq_rows(streams, cmax):
@@ -457,6 +576,16 @@ def test_blocks_per_sm_entries(cuda_device):
         assert rows == sms * n.value, entry
 
 
+def test_seq_stagers_default_to_the_card(cuda_device):
+    comp = np.zeros((2, 16), np.uint8)
+    staged = kds.stage_decode(comp, [0, 0], [0, 0], [0, 0])
+    assert all(t.device == cuda_device for t in staged)
+    staged = kes.stage_encode(comp, [16, 3])
+    assert all(t.device == cuda_device for t in staged)
+    staged = kes.stage_encode(comp, [16, 3], device="cpu")
+    assert all(t.device.type == "cpu" for t in staged)
+
+
 def test_stage_waves_defaults_to_the_card(cuda_device):
     staged = kw.stage_waves([native.compress(b"abc" * 1000)])
     assert all(t.device == cuda_device for t in staged)
@@ -577,3 +706,63 @@ def test_stream_writer_on_card(cuda_device):
     while piece := r.read(1 << 20):
         got += piece
     assert bytes(got) == data
+
+
+def _outcome(fn):
+    """("ok", bytes) of fn(), or ("error", class name) of its SnappyError."""
+    from snappy_tpu_torch.errors import SnappyError
+
+    try:
+        out = fn()
+    except SnappyError as e:
+        return "error", type(e).__name__
+    if isinstance(out, torch.Tensor):
+        out = out.cpu().numpy().tobytes()
+    return "ok", bytes(out)
+
+
+@pytest.mark.parametrize("mode", ["classify", "seq"])
+def test_mutation_sweep_on_card(cuda_device, mode, monkeypatch):
+    """tests/test_torch_framed_fuzz.py's flip / truncate / splice sweep
+    through the kernels on the card (flat_exec and crc32c_rows in the
+    classify engine, seq_decode and crc32c_rows in the device LZ engine),
+    both framed entry points: each outcome (bytes, or error class) is the
+    CPU run's (the plain versions) and the native decoder's, and no
+    mutation gives wrong bytes."""
+    import random
+
+    if mode == "seq":
+        monkeypatch.setattr(dc, "FLAT", False)
+        monkeypatch.setattr(dc, "HOST_PARSE", False)
+    else:
+        monkeypatch.setattr(dc, "FLAT_MODE", mode)
+    monkeypatch.setattr(dc, "BATCH", 8)
+    rng = random.Random(7200)
+    data = (b"fuzz corpus line " * 9000)[:140000] + rng.randbytes(30000)
+    framed = native.compress_framed(data)
+    before = (kc.launches, kf.launches, kds.launches)
+    for k in range(30):
+        mut = bytearray(framed)
+        if k % 3 == 0:
+            mut[rng.randrange(len(mut))] ^= rng.randrange(1, 256)
+        elif k % 3 == 1:
+            mut = mut[: rng.randrange(1, len(mut))]
+        else:
+            i = rng.randrange(len(mut))
+            n = min(len(mut) - i, rng.randrange(1, 64))
+            mut[i : i + n] = rng.randbytes(n)
+        mut = bytes(mut)
+        want = _outcome(lambda: native.decompress_framed(mut))
+        for entry in ("decompress_framed", "decompress_framed_to_device"):
+            on_card = _outcome(lambda: getattr(dc, entry)(
+                mut, device=cuda_device))
+            on_cpu = _outcome(lambda: getattr(dc, entry)(mut, device="cpu"))
+            assert on_card == on_cpu, (k, entry)
+            assert on_card[0] == want[0], (k, entry)
+            if on_card[0] == "ok":
+                assert on_card[1] == data, (k, entry)
+    assert kc.launches > before[0]
+    if mode == "seq":
+        assert kds.launches > before[2]
+    else:
+        assert kf.launches > before[1]

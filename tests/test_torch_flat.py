@@ -61,6 +61,47 @@ def _trips(meta, ntr):
     return np.ascontiguousarray(meta[:, : 8 * t])
 
 
+SLAB_ROWS = 64  # output rows of 128 B a CTA of csrc/flat_exec.cu builds
+V = kf.VEC
+
+
+def _slabs_model(meta, starts, n_trips: int, b_bytes, dst_len: int,
+                 out_rows: int = kf.OUT_ROWS):
+    """The kernel's partition of one row's plan, on the host: each
+    SLAB_ROWS-row slab of the output starts zero, keeps the used
+    subpanels whose window [Dq, Dq + 128) rows meets it, and copies the
+    valid pieces of those that land in it (bytes l <= 127 of a piece's
+    row), bytes at or past ``dst_len`` dropped and B reads past its end
+    giving 0."""
+    n_sub = kf.NSUB * min(n_trips & 0xFFFF, meta.shape[0] // (2 * kf.NSUB))
+    plane = starts.reshape(-1)
+    out = np.zeros(-(-dst_len // (SLAB_ROWS * V)) * SLAB_ROWS * V, np.uint8)
+    for r0 in range(0, len(out) // V, SLAB_ROWS):
+        slab = out[r0 * V : (r0 + SLAB_ROWS) * V]
+        for i in range(n_sub):
+            S, Dq = int(plane[i]) & 1023, (int(plane[i]) >> 10) & 1023
+            if not (Dq < r0 + SLAB_ROWS and Dq + V > r0):
+                continue
+            t, s = divmod(i, kf.NSUB)
+            D = min(Dq, out_rows - V)
+            for k in range(V):
+                bw = int(meta[2 * kf.NSUB * t + kf.NSUB + s, k])
+                drow = D + ((bw >> 14) & 127) + (Dq - D)
+                if not (bw & kf._VALID) or not r0 <= drow < r0 + SLAB_ROWS:
+                    continue
+                a = int(meta[2 * kf.NSUB * t + s, k])
+                src = (S + (a & 127)) * V + ((V - ((a >> 7) & 127)) & (V - 1))
+                dphi = bw & 127
+                q = np.arange(dphi, min(dphi + ((bw >> 7) & 127), V - 1) + 1)
+                q = q[drow * V + q < dst_len]
+                si = src + q
+                vals = np.zeros(len(q), np.uint8)
+                inside = si < len(b_bytes)
+                vals[inside] = b_bytes[si[inside]]
+                slab[(drow - r0) * V + q] = vals
+    return out[:dst_len]
+
+
 def test_constants_match_reference():
     for name in ("VEC", "NSUB", "PANEL", "W_ROWS", "PAT_ROWS", "OUT_ROWS",
                  "TRIP_CAP", "DIRECT_T", "_VALID"):
@@ -147,6 +188,8 @@ def test_compose_clamp(dq, drel, rot, out_rows):
     want = np.zeros(dst_max, np.uint8)
     want[dst + 3 : dst + 103] = b_u8[0, src + 3 : src + 103]
     assert np.array_equal(got[0].numpy(), want)
+    assert np.array_equal(_slabs_model(meta[0], starts[0], int(ntr[0]),
+                                              b_u8[0], dst_max, out_rows), want)
 
 
 def test_out_argument_and_empty_rows():
@@ -176,3 +219,69 @@ def test_plan_from_numpy_types():
         kf.decode_blocks_flat(b, m[:, :7], s, n, dst_max=65536)
     with pytest.raises(ValueError):
         kf.decode_blocks_flat(b.to(torch.int32), m, s, n, dst_max=65536)
+
+
+@pytest.mark.parametrize("kind", ["decode", "encode"])
+def test_slab_partition_matches_contract(kind):
+    """The kernel's slab partition (_slabs_model: 64-row slabs, the
+    subpanels whose window meets each, the pieces landing in it) equals
+    the numpy contract on real plans, with odd output lengths."""
+    if kind == "decode":
+        b_u8, meta, starts, ntr, want = _decode_plans(_corpus(15), 3)
+        dst, out_rows = 65536, kf.OUT_ROWS
+    else:
+        b_u8, meta, starts, ntr, want = _encode_plans(_corpus(16), 2)
+        dst, out_rows = ke.ENC_DST_MAX, ke.OUT_ROWS_ENC
+    for i, w in enumerate(want):
+        ref = kf.execute_flat_np(meta[i], starts[i], int(ntr[i]), b_u8[i],
+                                 dst, out_rows)
+        for dst_len in (dst, dst - 77, len(w)):
+            got = _slabs_model(meta[i], starts[i], int(ntr[i]),
+                                      b_u8[i], dst_len, out_rows)
+            assert np.array_equal(got, ref[:dst_len]), (i, dst_len)
+        assert got.tobytes() == w
+
+
+def test_slab_partition_trip_counts():
+    """ntrips 0 gives zeros, ntrips past the trip cap runs the cap,
+    the aligned-trip high half is ignored, and B reads past its end
+    give 0."""
+    b_u8, meta, starts, ntr, want = _decode_plans(_corpus(13, 256 * 1024), 1)
+    n = int(ntr[0]) & 0xFFFF
+    cap = meta.shape[1] // 8
+    assert not _slabs_model(meta[0], starts[0], 0, b_u8[0], 65536).any()
+    full = _slabs_model(meta[0], starts[0], n, b_u8[0], 65536)
+    assert full[: len(want[0])].tobytes() == want[0]
+    cut = np.ascontiguousarray(meta[0, : 8 * n])
+    assert np.array_equal(_slabs_model(
+        cut, starts[0], n + 7 + (3 << 16), b_u8[0], 65536), full)
+    assert cap >= n
+    short = b_u8[0, : len(b_u8[0]) // 2]
+    plain = kf.decode_blocks_flat(*kf.plan_from_numpy(
+        short[None], meta[:1], starts[:1], ntr[:1], "cpu"), dst_max=65536)
+    assert np.array_equal(_slabs_model(meta[0], starts[0], n, short,
+                                              65536), plain[0].numpy())
+
+
+@pytest.mark.parametrize("kind,cut", [("decode", False), ("decode", True),
+                                      ("encode", False)])
+def test_copied_bytes_count_each_written_byte(kind, cut):
+    """kernel_cost.flat_copied_bytes (the B bytes a plan's pieces copy,
+    which bound the kernel) equals the output bytes the plain version
+    writes from a B of all ones: each output byte comes from one piece,
+    bytes at or past dst_max are dropped and B reads past its end (the
+    cut case) read nothing."""
+    from snappy_tpu_torch.bench.kernel_cost import flat_copied_bytes
+
+    if kind == "decode":
+        b_u8, meta, starts, ntr, _ = _decode_plans(_corpus(17), 4)
+        dst, out_rows = 65536 - 77, kf.OUT_ROWS
+    else:
+        b_u8, meta, starts, ntr, _ = _encode_plans(_corpus(18), 2)
+        dst, out_rows = ke.ENC_DST_MAX, ke.OUT_ROWS_ENC
+    ones = np.ones_like(b_u8)
+    if cut:
+        ones = np.ascontiguousarray(ones[:, : ones.shape[1] // 3])
+    plan = kf.plan_from_numpy(ones, meta, starts, ntr, "cpu")
+    out = kf.decode_blocks_flat_plain(*plan, dst_max=dst, out_rows=out_rows)
+    assert flat_copied_bytes(*plan, dst, out_rows) == int(out.count_nonzero())

@@ -42,7 +42,8 @@ def _agree(staged, out_max, apart=()):
     and the JAX err as numpy."""
     jo, je = decode_blocks_pallas(*staged, out_max=out_max, interpret=True)
     jo, je = np.asarray(jo), np.asarray(je)
-    po, pe = kd.decode_blocks_seq(*kd.stage_decode(*staged), out_max)
+    po, pe = kd.decode_blocks_seq(*kd.stage_decode(*staged, device="cpu"),
+                                  out_max)
     po, pe = po.numpy(), pe.numpy()
     rows = [i for i in range(len(pe)) if i not in apart]
     assert np.array_equal(pe[rows], je[rows]), (pe, je)
@@ -213,7 +214,8 @@ def test_any_batch_and_row_width(rng):
         dlens[i], starts[i] = read_uvarint(s, 0)
         comp[i, : len(s)] = np.frombuffer(s, np.uint8)
         clens[i] = len(s)
-    c, st, cl, dl = kd.stage_decode(comp, starts, clens, dlens)
+    c, st, cl, dl = kd.stage_decode(comp, starts, clens, dlens,
+                                    device="cpu")
     out, err = kd.decode_blocks_seq(c[:, :width], st, cl, dl, 701)
     assert err.tolist() == [kd.ERR_NONE, kd.ERR_COPY, kd.ERR_NONE]
     for i in (0, 2):
@@ -227,7 +229,7 @@ def test_any_batch_and_row_width(rng):
 
 def test_plain_contract():
     c, st, cl, dl = kd.stage_decode(np.zeros((1, 16), np.uint8),
-                                    [0], [0], [0])
+                                    [0], [0], [0], device="cpu")
     with pytest.raises(ValueError):
         kd.decode_blocks_seq(c, st - 1, cl, dl, 16)   # start < 0
     with pytest.raises(ValueError):

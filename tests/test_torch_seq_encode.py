@@ -35,7 +35,8 @@ def _check(samples, bmax):
     samples, blocks, lens = _stage(samples, bmax)
     jc, jl, je = encode_blocks_pallas(blocks, lens, bmax=bmax, interpret=True)
     jc, jl = np.asarray(jc), np.asarray(jl)
-    comp, clens, err = ke.encode_blocks_seq(*ke.stage_encode(blocks, lens))
+    comp, clens, err = ke.encode_blocks_seq(
+        *ke.stage_encode(blocks, lens, "cpu"))
     comp, clens = comp.numpy(), clens.numpy()
     assert comp.shape[1] >= max_encoded_len(bmax)
     assert not err.any() and not np.asarray(je).any()
@@ -90,7 +91,7 @@ def test_roundtrip_through_seq_decoder(rng):
     lens = np.array([len(s) for s in samples], np.int32)
     for i, s in enumerate(samples):
         wide[i, : len(s)] = np.frombuffer(s, np.uint8)
-    blocks, lens_t = ke.stage_encode(wide, lens)
+    blocks, lens_t = ke.stage_encode(wide, lens, "cpu")
     comp, clens, err = ke.encode_blocks_seq(blocks[:, :bmax], lens_t)
     assert comp.shape[1] == ke.comp_width(bmax) and not err.any()
     starts = torch.zeros(len(samples), dtype=torch.int32)
@@ -101,7 +102,8 @@ def test_roundtrip_through_seq_decoder(rng):
 
 
 def test_length_outside_the_row():
-    blocks, lens = ke.stage_encode(np.full((3, 64), 7, np.uint8), [64, 65, -1])
+    blocks, lens = ke.stage_encode(np.full((3, 64), 7, np.uint8), [64, 65, -1],
+                                   "cpu")
     comp, clens, err = ke.encode_blocks_seq(blocks, lens)
     assert err.tolist() == [ke.ERR_NONE, ke.ERR_LEN, ke.ERR_LEN]
     assert clens.tolist()[1:] == [0, 0] and not comp[1:].any()

@@ -58,7 +58,7 @@ def _plain_decode(streams, starts=None, out_max=65536):
         st_[:] = starts
     model = kds.decode_rows_model(comp, st_, cl, dl, out_max)
     pout, perr = kds.decode_blocks_seq_plain(
-        *kds.stage_decode(comp, st_, cl, dl), out_max)
+        *kds.stage_decode(comp, st_, cl, dl, "cpu"), out_max)
     return model, (pout.numpy(), perr.numpy())
 
 
@@ -153,7 +153,7 @@ def test_encode_model_matches_plain(data):
     got = kes.encode_block_model(data)
     comp, clens, err = kes.encode_blocks_seq_plain(*kes.stage_encode(
         np.frombuffer(data.ljust(max(len(data), 1), b"\x00"), np.uint8)[None],
-        np.array([len(data)], np.int32)))
+        np.array([len(data)], np.int32), "cpu"))
     assert err.tolist() == [0]
     assert got == comp[0, : int(clens[0])].numpy().tobytes()
     assert got == (jreference.encode_block(data) if data else b"")

@@ -34,7 +34,8 @@ MODULES = [
     "kernels.decode_seq", "kernels.decode_wavegroup", "kernels.encode_flat",
     "kernels.encode_np", "kernels.encode_seq", "kernels.match",
     "spec", "spec.crc32c", "spec.format", "spec.framing", "spec.reference",
-    "bench.corpus", "bench.seq_profile", "utils.hostmem", "utils.log",
+    "bench.corpus", "bench.kernel_cost", "bench.seq_profile",
+    "utils.hostmem", "utils.log",
     "utils.progress",
 ]
 
