@@ -20,7 +20,12 @@ through its kernels, times each kernel against its plain version, then
 saves and loads a state dict with GPT-2 medium's tensor shapes through
 the checkpoint API (id and seq engines; phase 15) and drives the
 streaming reader and writer and the CLI over 256 MiB of the corpus
-(phase 16).
+(phase 16), and drives ``dist``, the mesh and multi-host codec, over
+1 GiB of the corpus (phase 17): the mesh forms on every local card and
+on two shards of the card, then two processes on the card over gloo
+(the multihost CLI, and the device entry points with the length
+all-gather), each output against its single-device or single-process
+counterpart.
 Every check raises on failure (nothing is caught), so any failure exits
 non-zero; without a GPU it exits non-zero before printing any result.
 
@@ -291,6 +296,11 @@ def _counters():
 
     return {"crc32c_rows": kc, "flat_exec": kf, "seq_decode": kds,
             "seq_encode": kes, "wavegroup": kw, "match_cands": km}
+
+
+def _counter_modules() -> dict:
+    """Kernel name -> the module that counts its launches, by name."""
+    return {k: m.__name__ for k, m in _counters().items()}
 
 
 def _bad_streams() -> list:
@@ -1196,16 +1206,16 @@ def checkpoint_phase(card, dev, layers: int, seed: int):
     return rates, counts, blob[lo:hi]
 
 
-# ``python -m snappy_tpu_torch <args>`` run in a child interpreter that
-# then prints, as the last line of its stderr, the device the CLI's
-# default pick resolves to and every kernel's launch count
+# ``python -m <module> <args>`` run in a child interpreter that then
+# prints, as the last line of its stderr, the device the port's default
+# pick resolves to and every kernel's launch count
 _CLI_CHILD = """
 import importlib, json, runpy, sys
 from snappy_tpu_torch import device
 mods = {k: importlib.import_module(m) for k, m in %r.items()}
 rc = 0
 try:
-    runpy.run_module("snappy_tpu_torch", run_name="__main__", alter_sys=True)
+    runpy.run_module(%r, run_name="__main__", alter_sys=True)
 except SystemExit as e:
     rc = e.code or 0
 print(json.dumps({"device": str(device.resolve()),
@@ -1264,7 +1274,7 @@ def stream_phase(card, dev, data: bytes, info_blob: bytes):
               f"{rates['stream.read']:.3f} GB/s (bytes equal the input)")
 
     root = os.path.dirname(os.path.abspath(__file__))
-    child = _CLI_CHILD % {k: m.__name__ for k, m in _counters().items()}
+    child = _CLI_CHILD % (_counter_modules(), "snappy_tpu_torch")
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "corpus.bin")
         with open(src, "wb") as f:
@@ -1326,6 +1336,283 @@ def stream_phase(card, dev, data: bytes, info_blob: bytes):
     return rates, counts
 
 
+# one rank of the multi-host device entry points, run in a child
+# interpreter: host_decompress_framed_to_device -> host_compress_framed_
+# from_device -> gather_lengths -> pwrite at the gathered offset.  Its
+# timings go to stdout as one JSON line; the device the port's default
+# pick resolves to and every kernel's launch count to the last line of
+# its stderr
+_DIST_CHILD = """
+import importlib, json, sys, time
+import torch
+from snappy_tpu_torch import device
+from snappy_tpu_torch.dist import mesh as dm, multihost as mh
+from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK
+mods = {k: importlib.import_module(m) for k, m in %r.items()}
+src, out, coord = sys.argv[1:4]
+nproc, pid = int(sys.argv[4]), int(sys.argv[5])
+dm.init_distributed(coord, nproc, pid, timeout=300)
+with open(src, "rb") as f:
+    fr = f.read()
+t0 = time.perf_counter()
+rows, dlens, lo, cnt = mh.host_decompress_framed_to_device(fr, pid, nproc)
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+bodies, lengths = mh.host_compress_framed_from_device(rows, dlens)
+t2 = time.perf_counter()
+torch.distributed.barrier()  # the collective's time below, not a peer's lag
+t2b = time.perf_counter()
+all_lengths = mh.gather_lengths(lengths)
+t3 = time.perf_counter()
+head = len(STREAM_ID_CHUNK)
+mh._ensure_outfile(out, head + int(all_lengths.sum()), pid)
+mh._pwrite(out, [(STREAM_ID_CHUNK if pid == 0 else b"", 0),
+                 (b"".join(bodies), head + int(all_lengths[:lo].sum()))])
+t4 = time.perf_counter()
+print(json.dumps({"host": pid, "chunks": cnt, "bytes": int(dlens.sum()),
+                  "mesh": str(rows.mesh), "decode_s": t1 - t0,
+                  "encode_s": t2 - t1, "wait_s": t2b - t2,
+                  "gather_s": t3 - t2b,
+                  "write_s": t4 - t3}), flush=True)
+torch.distributed.destroy_process_group()
+print(json.dumps({"device": str(device.resolve()),
+                  "launches": {k: m.launches for k, m in mods.items()}}),
+      file=sys.stderr, flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(code: str, args_per_rank: list, cwd: str, timeout: float = 600):
+    """Run ``python -c code`` once per argument list, all at once; every
+    child must exit 0 within ``timeout`` seconds.  Returns the wall
+    seconds and, per rank, its last stdout line (JSON) and the report on
+    its last stderr line (JSON)."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code, *args], cwd=cwd,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args in args_per_rank]
+    res = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, err[-3000:]
+            res.append((json.loads(out.strip().splitlines()[-1]),
+                        json.loads(err.strip().splitlines()[-1])))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0, res
+
+
+def _batch64(seed: int):
+    """The 64 blocks of ``__graft_entry__.dryrun_multichip``'s kind
+    (text, random and run-length rows of up to 1 KiB), from a seed."""
+    rng = np.random.default_rng(seed)
+    raw = []
+    for i in range(64):
+        if i % 3 == 0:
+            raw.append((b"sharded snappy block " * 50)[:1024])
+        elif i % 3 == 1:
+            raw.append(rng.integers(0, 256, 1024, dtype=np.uint8).tobytes())
+        else:
+            raw.append(b"Z" * 512)
+    return raw
+
+
+def _batch_forms(dm, mesh, raw: list) -> dict:
+    """The flat and id forms of dist.mesh and its match finder on one
+    batch of blocks over ``mesh``; host results by name."""
+    enc = dm.stage_flat_enc_batch(raw)
+    elems = enc[6]
+    res = {"enc": dm.sharded_encode_flat(mesh, *enc[:4])}
+    res["flat"], res["flat_err"] = dm.sharded_decode_flat(
+        mesh, *dm.stage_flat_dec_batch(elems), out_max=65536)
+    ids = dm.stage_dec_id_batch(elems)
+    res["id"], res["id_err"] = dm.sharded_decode_id(mesh, *ids)
+    res["crc"] = dm.sharded_crc(mesh, np.ascontiguousarray(
+        ids[0][:, :65536]), ids[1])
+    res["match"] = dm.sharded_match(mesh, raw, slots=4096)
+    res["clens"], res["elems"] = enc[4], elems
+    return res
+
+
+def dist_phase(card, dev, mib: int, seed: int):
+    """Phase 17: dist.mesh and dist.multihost at a loader's size, ``mib``
+    MiB of make_corpus(seed).  The mesh forms on every local card
+    (``make_mesh()``) and on two shards of the card: the stream loader's
+    rows against the single-device decompress_framed_to_device, a
+    flipped payload byte, the from-device encode against
+    native.compress_framed, and the 64-block flat, id and match forms
+    against the same forms on the CPU (the plain versions).  Then two
+    processes on the card over gloo: the multihost CLI's compress and
+    decompress, and the device entry points with the length all-gather,
+    each output against the single-process one.  Returns the rates and
+    the runs' launch counts (the CPU comparisons launch nothing)."""
+    import os
+    import tempfile
+
+    import snappy_tpu_torch as st
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.bench import kernel_cost
+    from snappy_tpu_torch.dist import mesh as dm
+    from snappy_tpu_torch.errors import ChecksumError
+    from snappy_tpu_torch.kernels.crc32c import crc32c_chunks
+
+    t0 = time.perf_counter()
+    data = corpus_bytes(mib << 20, seed)
+    n = len(data)
+    nchunks = -(-n // 65536)
+    log(card, f"phase 17: {n} B ({nchunks} chunks) of make_corpus(seed="
+              f"{seed}) made in {time.perf_counter() - t0:.2f} s")
+    rates, counts = {}, {}
+    ref, secs = timed(lambda: native.compress_framed(data, threads=4))
+    rates["dist.host native.compress_framed"] = n / secs / 1e9
+    _, secs = timed(lambda: native.decompress_framed(ref, threads=4))
+    rates["dist.host native.decompress_framed"] = n / secs / 1e9
+    flat = st.decompress_framed_to_device(ref, device=dev)  # the reference
+    want_lens = np.minimum(n - np.arange(nchunks) * 65536, 65536)
+    bad = flip_payload_byte(ref)
+    raw = _batch64(seed)
+    on_cpu = _batch_forms(dm, dm.make_mesh(devices=["cpu"]), raw)
+
+    for label, mesh in (("mesh1", dm.make_mesh()),
+                        ("mesh2", dm.make_mesh(devices=[dev] * 2))):
+        name = f"dist.{label}"
+        (rows, dlens, b), secs, counts[f"{name}.decompress"] = counted(
+            card, f"{name} {mesh} sharded_decompress_framed_to_device",
+            lambda: dm.sharded_decompress_framed_to_device(mesh, ref))
+        rates[f"{name}.decompress_framed_to_device"] = n / secs / 1e9
+        assert b == nchunks and (dlens == want_lens).all()
+        per = rows.shape[0] // mesh.size
+        for k, (s, d) in enumerate(zip(rows.shards, mesh.devices)):
+            lo, hi = k * per, min((k + 1) * per, b)
+            want = flat[lo << 16 : min(hi << 16, n)]
+            got = s.reshape(-1)
+            assert s.device == d and torch.equal(got[: want.numel()], want), \
+                f"{name}: shard {k} != decompress_framed_to_device"
+            assert not got[want.numel():].any(), f"{name}: shard {k} tail"
+        fr2, secs, counts[f"{name}.compress"] = counted(
+            card, f"{name} sharded_compress_framed_from_device",
+            lambda: dm.sharded_compress_framed_from_device(mesh, rows, dlens))
+        rates[f"{name}.compress_framed_from_device"] = n / secs / 1e9
+        assert fr2 == ref, f"{name}: from-device stream != native"
+        if label == "mesh1":
+            # the card's share of a loader call, and its CRC launch alone
+            busy = kernel_cost.device_ms([
+                lambda: dm.sharded_decompress_framed_to_device(mesh, ref)])
+            lens_p = np.zeros(rows.shape[0], np.int32)
+            lens_p[:b] = dlens
+            crc_args = (rows.shards[0], torch.from_numpy(lens_p).to(dev))
+            crc_ms = kernel_cost.device_ms([lambda: crc32c_chunks(*crc_args)])
+            bound = (kernel_cost.kernel_bytes("crc32c_rows", crc_args)
+                     / kernel_cost.HBM_BYTES_PER_S * 1e3)
+            log(card, f"{name}: the card's time in one loader call "
+                      f"{busy} ms (torch.profiler: the CRC launch and the "
+                      f"copies) of {n / rates[f'{name}.decompress_framed_to_device'] / 1e6:.1f} "
+                      f"ms; its CRC launch over {rows.shape[0]} rows "
+                      f"{crc_ms} ms on the card, bound {bound:.4f} ms")
+        del rows, fr2
+        expect_raise(ChecksumError,
+                     lambda: dm.sharded_decompress_framed_to_device(mesh, bad),
+                     f"{name}: flipped payload byte")
+        res, _, counts[f"{name}.batch64"] = counted(
+            card, f"{name} 64-block flat, id and match forms",
+            lambda: _batch_forms(dm, mesh, raw))
+        for key, val in on_cpu.items():
+            if isinstance(val, np.ndarray):
+                assert np.array_equal(res[key], val), f"{name}: {key} != CPU"
+        assert not res["flat_err"].any() and not res["id_err"].any()
+        for i, blk in enumerate(raw):
+            elem = res["enc"][i, : res["clens"][i]].tobytes()
+            assert elem == res["elems"][i] == native.compress(blk)
+            assert res["flat"][i, : len(blk)].tobytes() == blk
+            assert res["id"][i, : len(blk)].tobytes() == blk
+            assert int(res["crc"][i]) == native.crc32c(blk)
+        for k in ("crc32c_rows", "flat_exec", "match_cands"):
+            assert counts[f"{name}.batch64"][k] > 0, (name, k)
+        log(card, f"{name}: {n} B, sharded decompress_framed_to_device "
+                  f"{rates[f'{name}.decompress_framed_to_device']:.3f} GB/s, "
+                  f"compress_framed_from_device "
+                  f"{rates[f'{name}.compress_framed_from_device']:.3f} GB/s "
+                  f"(host native.compress_framed "
+                  f"{rates['dist.host native.compress_framed']:.3f}, "
+                  f"decompress_framed "
+                  f"{rates['dist.host native.decompress_framed']:.3f} GB/s); "
+                  f"rows equal the single-device loader's, the stream equals "
+                  f"native.compress_framed, a flipped byte raised "
+                  f"ChecksumError, the 64-block forms equal the CPU's")
+    del flat
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    mods = _counter_modules()
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "corpus.bin")
+        with open(src, "wb") as f:
+            f.write(data)
+        cli = _CLI_CHILD % (mods, "snappy_tpu_torch.dist.multihost")
+        for cmd, inp, out, want in (
+                ("compress", src, src + ".sz", ref),
+                ("decompress", src + ".sz", src + ".out", data)):
+            port = _free_port()
+            wall, res = _ranks(cli, [
+                ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                 "2", "--process-id", str(i), cmd, inp, out]
+                for i in range(2)], root)
+            with open(out, "rb") as f:
+                assert f.read() == want, f"multihost CLI {cmd} output"
+            for i, (stats, report) in enumerate(res):
+                assert stats["device"] == report["device"] == str(dev), (
+                    stats, report)
+                assert report["launches"]["crc32c_rows"] > 0, report
+                counts[f"dist.cli.{cmd}.rank{i}"] = report["launches"]
+            rates[f"dist.cli.{cmd}"] = n / wall / 1e9
+            rates[f"dist.cli.{cmd}.ranks"] = n / max(
+                s["seconds"] for s, _ in res) / 1e9
+            log(card, f"multihost CLI {cmd}, 2 processes on "
+                      f"{res[0][1]['device']}: {n} B, "
+                      f"{rates[f'dist.cli.{cmd}']:.3f} GB/s with process "
+                      f"start, {rates[f'dist.cli.{cmd}.ranks']:.3f} GB/s over "
+                      f"the slower rank's call; per rank "
+                      f"{[s for s, _ in res]}; launches "
+                      f"{[r['launches'] for _, r in res]}; output "
+                      f"byte-identical to the single-process one")
+        port = _free_port()
+        wall, res = _ranks(_DIST_CHILD % mods, [
+            [src + ".sz", src + ".dev.sz", f"127.0.0.1:{port}", "2", str(i)]
+            for i in range(2)], root)
+        with open(src + ".dev.sz", "rb") as f:
+            assert f.read() == ref, "multihost device entry points' stream"
+        for i, (stats, report) in enumerate(res):
+            assert report["device"] == str(dev), report
+            assert stats["mesh"] == f"Mesh(['{dev}'])", stats
+            assert report["launches"]["crc32c_rows"] > 0, report
+            counts[f"dist.devices.rank{i}"] = report["launches"]
+        rates["dist.devices"] = n / wall / 1e9
+        slow = max(s["decode_s"] + s["encode_s"] + s["gather_s"]
+                   for s, _ in res)
+        rates["dist.devices.ranks"] = n / slow / 1e9
+        log(card, f"multihost device entry points, 2 processes on {dev}: "
+                  f"{n} B, {rates['dist.devices']:.3f} GB/s with process "
+                  f"start, {rates['dist.devices.ranks']:.3f} GB/s over the "
+                  f"slower rank's decode + encode + gather; per rank "
+                  f"{[s for s, _ in res]}; gather_lengths "
+                  f"{[round(s['gather_s'] * 1e3, 3) for s, _ in res]} ms; "
+                  f"launches {[r['launches'] for _, r in res]}; stream "
+                  f"byte-identical to native.compress_framed")
+    log(card, "phase 17 launches: " + json.dumps(
+        {k: sum(c[k] for c in counts.values()) for k in KERNELS}))
+    return rates, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--id-mib", type=int, default=256)
@@ -1337,6 +1624,8 @@ def main() -> int:
                     default=GPT2_MEDIUM["n_layer"],
                     help="layers of the phase-15 GPT-2 medium state")
     ap.add_argument("--stream-mib", type=int, default=256)
+    ap.add_argument("--dist-mib", type=int, default=1024,
+                    help="MiB of the phase-17 loader corpus")
     ap.add_argument("--seed", type=int, default=20260816)
     args = ap.parse_args()
 
@@ -1404,11 +1693,12 @@ def main() -> int:
     st_rates, st_counts = stream_phase(
         card, dev, full[: args.stream_mib << 20], info_blob)
     del full
-    rates.update(ck_rates, **st_rates)
-    counts.update(ck_counts, **st_counts)
+    di_rates, di_counts = dist_phase(card, dev, args.dist_mib, args.seed)
+    rates.update(ck_rates, **st_rates, **di_rates)
+    counts.update(ck_counts, **st_counts, **di_counts)
     launches = {name: sum(c[name] for c in counts.values())
                 for name in KERNELS}
-    log(card, f"launches over every counted run (phases 9-13, 15, 16): "
+    log(card, f"launches over every counted run (phases 9-13, 15-17): "
               f"{launches}")
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,

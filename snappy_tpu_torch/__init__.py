@@ -17,6 +17,9 @@ Layers:
               streaming FramedReader / FramedWriter
   api.py      the public entry points and the backend registry
   checkpoint  tensors and state dicts as framed streams
+  dist/       chunks sharded over a mesh of devices, and per-process
+              chunk ranges over ``torch.distributed`` (gloo)
+              (``python -m snappy_tpu_torch.dist.multihost``)
   cli/        the ``tpusnappy-torch`` tool (``python -m snappy_tpu_torch``)
 
 Public API: compress / decompress (raw block format), compress_framed /

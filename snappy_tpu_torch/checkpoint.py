@@ -38,6 +38,7 @@ import torch
 from snappy_tpu_torch.errors import CorruptError
 from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK
 from snappy_tpu_torch.device import resolve
+from snappy_tpu_torch.dist.mesh import ShardedRows
 from snappy_tpu_torch.runtime.device_codec import (
     compress_framed_from_device,
     decompress_framed,
@@ -103,6 +104,9 @@ def _split_meta(data: bytes):
 def _array_parts(arr) -> list:
     """save_array's stream as [stream identifier, manifest chunk, a view
     of the records], so that a container joins it in one copy."""
+    if isinstance(arr, ShardedRows):  # its shards, joined on the first's device
+        dev = arr.shards[0].device
+        arr = torch.cat([s.to(dev) for s in arr.shards])
     t = torch.as_tensor(arr)
     if t.dtype not in _NAMES:
         raise ValueError(f"no checkpoint name for dtype {t.dtype}")
@@ -121,7 +125,9 @@ def save_array(arr) -> bytes:
     ``compress_framed_from_device``, with the manifest in a skippable
     chunk.  A CPU tensor (or array-like) moves to the default device
     first (``cuda:0`` when there is a GPU), as ``jnp.asarray`` does in
-    the JAX package."""
+    the JAX package.  A ``dist.mesh.ShardedRows`` is saved as the batch
+    its shards make, joined in shard order: the same bytes as the
+    gathered tensor's."""
     return b"".join(_array_parts(arr))
 
 

@@ -302,6 +302,30 @@ def test_save_moves_cpu_tensor_to_default_device(monkeypatch):
     assert [d.type for d in seen] == ["meta"] * 3
 
 
+@pytest.mark.parametrize("n_shards", [8, 2])
+def test_sharded_array_roundtrip(n_shards):
+    """tests/test_checkpoint.py's sharded case: rows laid out over a mesh
+    save to the bytes of the gathered tensor and of JAX's save_array of
+    the same values on its mesh, and load back."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from snappy_tpu.dist import mesh as jmesh
+    from snappy_tpu_torch.dist import mesh as tmesh
+
+    if len(jax.devices()) < n_shards:
+        pytest.skip(f"needs {n_shards} jax devices")
+    host = np.arange(8 * 40_000, dtype=np.float32).reshape(8, 40_000)
+    rows = tmesh.shard_rows(tmesh.make_mesh(devices=["cpu"] * n_shards),
+                            host)
+    blob = ck.save_array(rows)
+    assert blob == ck.save_array(torch.from_numpy(host))
+    assert blob == jck.save_array(jax.device_put(
+        host, NamedSharding(jmesh.make_mesh(n_shards), P("d"))))
+    back = ck.load_array(blob)
+    assert back.shape == (8, 40_000) and back.dtype == torch.float32
+    _same(back, host)
+
+
 def _gpt2_shaped(n_layer: int, d: int, vocab: int, ctx: int, seed: int):
     """A state dict with GPT-2's tensor shapes, values as at
     initialisation: weights normal(0, 0.02), LayerNorm weights ones,

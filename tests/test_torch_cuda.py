@@ -766,3 +766,77 @@ def test_mutation_sweep_on_card(cuda_device, mode, monkeypatch):
         assert kds.launches > before[2]
     else:
         assert kf.launches > before[1]
+
+
+def test_make_mesh_takes_the_local_cards(cuda_device):
+    from snappy_tpu_torch.dist import mesh as dm
+
+    mesh = dm.make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count()))
+    assert dm.make_mesh(1).devices == (cuda_device,)
+
+
+def test_dist_forms_on_card(cuda_device):
+    """Every per-shard form of dist.mesh on two shards of the card
+    against the same form on the 8-shard CPU mesh (the plain versions),
+    and the launches they made: crc32c_rows, flat_exec and match_cands."""
+    from snappy_tpu_torch.dist import mesh as dm
+
+    card = dm.make_mesh(devices=[cuda_device] * 2)
+    cpu8 = dm.make_mesh(devices=["cpu"] * 8)
+    data = _corpus(21, 1 << 20)
+    fr = native.compress_framed(data)
+    before = (kc.launches, kf.launches, km.launches)
+
+    rows, dlens, b = dm.sharded_decompress_framed_to_device(card, fr)
+    rows_c, dlens_c, b_c = dm.sharded_decompress_framed_to_device(cpu8, fr)
+    assert all(s.device == cuda_device for s in rows.shards)
+    assert b == b_c and (dlens == dlens_c).all()
+    np.testing.assert_array_equal(rows.numpy(), rows_c.numpy())
+    assert dm.sharded_compress_framed_from_device(card, rows, dlens) == fr
+    assert (dm.sharded_encode_rows_to_chunks(card, rows, dlens)
+            == dm.sharded_encode_rows_to_chunks(cpu8, rows_c, dlens_c))
+
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(5)] + [
+        data[:3000], b""]
+    elems = [native.compress(blk) for blk in blocks]
+    staged = dm.stage_flat_dec_batch(elems)
+    for got, want in zip(dm.sharded_decode_flat(card, *staged, out_max=65536),
+                         dm.sharded_decode_flat(cpu8, *staged, out_max=65536)):
+        np.testing.assert_array_equal(got, want)
+    enc = dm.stage_flat_enc_batch(blocks)[:4]
+    np.testing.assert_array_equal(dm.sharded_encode_flat(card, *enc),
+                                  dm.sharded_encode_flat(cpu8, *enc))
+    ids = dm.stage_dec_id_batch(elems)
+    for got, want in zip(dm.sharded_decode_id(card, *ids),
+                         dm.sharded_decode_id(cpu8, *ids)):
+        np.testing.assert_array_equal(got, want)
+    blocks64 = ids[0][:, :65536].copy()
+    np.testing.assert_array_equal(dm.sharded_crc(card, blocks64, ids[1]),
+                                  dm.sharded_crc(cpu8, blocks64, ids[1]))
+    np.testing.assert_array_equal(dm.sharded_match(card, blocks[:3], 65536),
+                                  dm.sharded_match(cpu8, blocks[:3], 65536))
+    assert kc.launches > before[0]
+    assert kf.launches > before[1]
+    assert km.launches > before[2]
+
+
+def test_multihost_entry_points_on_card(cuda_device):
+    """The multi-host device entry points default to the card's mesh;
+    two simulated hosts' records assemble into the single stream."""
+    from snappy_tpu_torch.dist import multihost as mh
+
+    data = _corpus(22, 1 << 20)
+    fr = native.compress_framed(data)
+    out = bytearray(fr[:10])
+    for pid in range(2):
+        rows, dlens, lo, cnt = mh.host_decompress_framed_to_device(fr, pid, 2)
+        assert all(s.device.type == "cuda" for s in rows.shards)
+        bodies, lengths = mh.host_compress_framed_from_device(rows, dlens)
+        assert len(bodies) == cnt and mh.gather_lengths(lengths) is lengths
+        out += b"".join(bodies)
+    assert bytes(out) == fr
+    before = kc.launches
+    bodies, _ = mh.host_compress_framed(data, 0)
+    assert fr[:10] + b"".join(bodies) == fr and kc.launches > before

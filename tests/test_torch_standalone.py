@@ -28,7 +28,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "snappy_tpu_torch")
 
 MODULES = [
-    "api", "checkpoint", "cli.main", "device", "errors", "native",
+    "api", "checkpoint", "cli.main", "device", "dist", "dist.mesh",
+    "dist.multihost", "errors", "native",
     "runtime.device_codec", "runtime.stream",
     "kernels._build", "kernels.crc32c", "kernels.decode_flat",
     "kernels.decode_seq", "kernels.decode_wavegroup", "kernels.encode_flat",
