@@ -25,7 +25,11 @@ streaming reader and writer and the CLI over 256 MiB of the corpus
 on two shards of the card, then two processes on the card over gloo
 (the multihost CLI, and the device entry points with the length
 all-gather), each output against its single-device or single-process
-counterpart.
+counterpart; and drives the hybrid decode engine, the portable (jnp)
+engines and the mesh forms that run them (phase 18: the record executor
+against its plain version, the hybrid engine over 256 MiB, the jnp
+engines over 256 MiB, sharded_encode / sharded_decode / roundtrip_step
+on the local cards and on two shards of the card).
 Every check raises on failure (nothing is caught), so any failure exits
 non-zero; without a GPU it exits non-zero before printing any result.
 
@@ -72,6 +76,10 @@ KERNELS = {
     "match_cands": {
         "source": "snappy_tpu_torch/csrc/match.cu",
         "replaces": "snappy_tpu/kernels/pallas_match.py:125",
+    },
+    "decode_pretagged": {
+        "source": "snappy_tpu_torch/csrc/pretagged.cu",
+        "replaces": "snappy_tpu/kernels/decode_pretagged.py:56",
     },
 }
 SEQ_ROWS = 64  # rows of the seq, wave and match checks and timings before
@@ -289,13 +297,15 @@ def runtime_plan(plan, kmax: int):
 def _counters():
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import decode_pretagged as kp
     from snappy_tpu_torch.kernels import decode_seq as kds
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
     from snappy_tpu_torch.kernels import encode_seq as kes
     from snappy_tpu_torch.kernels import match as km
 
     return {"crc32c_rows": kc, "flat_exec": kf, "seq_decode": kds,
-            "seq_encode": kes, "wavegroup": kw, "match_cands": km}
+            "seq_encode": kes, "wavegroup": kw, "match_cands": km,
+            "decode_pretagged": kp}
 
 
 def _counter_modules() -> dict:
@@ -1613,6 +1623,239 @@ def dist_phase(card, dev, mib: int, seed: int):
     return rates, counts
 
 
+def _dryrun_batch():
+    """``__graft_entry__.dryrun_multichip``'s roundtrip batch: 16 blocks
+    at bmax 1024 (text, random, run-length rows), default_rng(0)."""
+    bmax = 1024
+    rng = np.random.default_rng(0)
+    blocks = np.zeros((16, bmax), dtype=np.uint8)
+    lens = np.zeros(16, dtype=np.int32)
+    for i in range(16):
+        if i % 3 == 0:
+            row = (b"sharded snappy block " * 50)[:bmax]
+        elif i % 3 == 1:
+            row = rng.integers(0, 256, bmax, dtype=np.uint8).tobytes()
+        else:
+            row = b"Z" * (bmax // 2)
+        blocks[i, : len(row)] = np.frombuffer(row, dtype=np.uint8)
+        lens[i] = len(row)
+    return blocks, lens, bmax
+
+
+def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
+    """Phase 18: the hybrid decode engine, the jnp engines and the mesh
+    forms that run them, on make_corpus(seed).  (a) decode_pretagged
+    against its plain version on one runtime-shaped batch (the first 64
+    compressed chunks, the parser's records, the bucket width), timed;
+    (b) the hybrid engine (FLAT=0, HOST_PARSE=1) over ``hybrid_mib`` MiB
+    beside the host's native.decompress_framed, with the card's busy
+    share of one call and a flipped payload byte and a broken element;
+    (c) the jnp engines (PALLAS=0) over ``jnp_mib`` MiB: decode with
+    HOST_PARSE=0, compress_framed with RATIO_GUARD, the first 64 chunks'
+    emission against encode_np, and one 64-row batch of decode_blocks and
+    encode_blocks timed; (d) sharded_encode, sharded_decode and
+    roundtrip_step on make_mesh() and on two shards of the card, the dry
+    run's 16 blocks and 64 corpus chunks.  Returns (rates, counts, the
+    kernel's time row, its max_abs_err)."""
+    import snappy_tpu_torch as st
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
+                                                    device_ms, kernel_bytes)
+    from snappy_tpu_torch.dist import mesh as dm
+    from snappy_tpu_torch.errors import ChecksumError, CorruptError
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import decode_pretagged as kp
+    from snappy_tpu_torch.kernels import encode_np as enp
+    from snappy_tpu_torch.kernels import encode_par as ep
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    t0 = time.perf_counter()
+    full = corpus_bytes(max(hybrid_mib, jnp_mib) << 20, seed)
+    log(card, f"phase 18: {len(full)} B of make_corpus(seed={seed}) made in "
+              f"{time.perf_counter() - t0:.2f} s")
+    rates, counts = {}, {}
+
+    # (a) the record executor against its plain version
+    data = full[: hybrid_mib << 20]
+    n = len(data)
+    ref = native.compress_framed(data, threads=4)
+    chunks, _ = dc._scan_frames(ref)
+    first = [ch for ch in chunks if ch[0] == 0][:64]
+    args = kp.stage_records([ref[ch[1] : ch[1] + ch[2]] for ch in first],
+                            [ch[5] for ch in first], [ch[4] for ch in first],
+                            device=dev)
+    kern = kp.decode_blocks_pretagged(*args)
+    plain = kp.decode_blocks_pretagged_plain(*args)
+    torch.cuda.synchronize()
+    err = int((kern.int() - plain.int()).abs().max())
+    assert err == 0, f"decode_pretagged != plain ({err})"
+    for i, ch in enumerate(first):
+        assert kern[i, : ch[4]].cpu().numpy().tobytes() == \
+            native.decompress(ref[ch[1] : ch[1] + ch[2]]), f"row {i}"
+    p1 = time_ms(lambda: kp.decode_blocks_pretagged_plain(*args), 3)
+    k1 = time_ms(lambda: kp.decode_blocks_pretagged(*args), 200)
+    k2 = time_ms(lambda: kp.decode_blocks_pretagged(*args), 200)
+    p2 = time_ms(lambda: kp.decode_blocks_pretagged_plain(*args), 3)
+    dev_ms = device_ms([lambda: kp.decode_blocks_pretagged(*args)], 50)
+    nbytes = kernel_bytes("decode_pretagged", args)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"ms": min(k1, k2), "device_ms": dev_ms, "plain_ms": min(p1, p2),
+           "bound_ms": bound, "rows": len(first)}
+    log(card, f"decode_pretagged (main) at [{len(first)} rows, "
+              f"{args[0].shape[1]} B payload rows, {args[1].shape[1]} "
+              f"records a row, {int(args[2].sum())} records]: max_abs_err "
+              f"{err} against the plain version; kernel {k1:.4f}/{k2:.4f} ms "
+              f"a call, {dev_ms} ms on the card (profiler), plain "
+              f"{p1:.4f}/{p2:.4f} ms; bound {bound:.4f} ms ({nbytes} B at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+    del kern, plain, args
+
+    # (b) the hybrid engine
+    dc.FLAT, dc.HOST_PARSE = False, True
+    try:
+        _, secs = timed(lambda: native.decompress_framed(ref, threads=4))
+        rates["hybrid.host native.decompress_framed"] = n / secs / 1e9
+        out, secs, counts["hybrid.decompress_framed"] = counted(
+            card, "hybrid decompress_framed",
+            lambda: st.decompress_framed(ref, device=dev))
+        rates["hybrid.decompress_framed"] = n / secs / 1e9
+        assert out == data, "hybrid decompress_framed != input"
+        del out
+        arr, secs, counts["hybrid.decompress_framed_to_device"] = counted(
+            card, "hybrid decompress_framed_to_device",
+            lambda: st.decompress_framed_to_device(ref, device=dev))
+        rates["hybrid.decompress_framed_to_device"] = n / secs / 1e9
+        assert arr.device == dev and torch.equal(arr, torch.frombuffer(
+            bytearray(data), dtype=torch.uint8).to(dev)), \
+            "hybrid decompress_framed_to_device != input"
+        del arr
+        busy = device_ms([lambda: st.decompress_framed_to_device(
+            ref, device=dev)], tries=2)
+        for name in ("hybrid.decompress_framed",
+                     "hybrid.decompress_framed_to_device"):
+            for k in ("decode_pretagged", "crc32c_rows"):
+                assert counts[name][k] > 0, f"{k} never launched in {name}"
+        expect_raise(ChecksumError, lambda: st.decompress_framed(
+            flip_payload_byte(ref), device=dev), "hybrid: flipped byte")
+        expect_raise(CorruptError, lambda: st.decompress_framed_to_device(
+            break_element(ref), device=dev), "hybrid: broken element")
+        wall_ms = n / rates["hybrid.decompress_framed_to_device"] / 1e6
+        log(card, f"hybrid: {n} B, decompress_framed "
+                  f"{rates['hybrid.decompress_framed']:.3f} GB/s, "
+                  f"decompress_framed_to_device "
+                  f"{rates['hybrid.decompress_framed_to_device']:.3f} GB/s "
+                  f"(host native.decompress_framed "
+                  f"{rates['hybrid.host native.decompress_framed']:.3f} "
+                  f"GB/s); the card busy {busy} ms (torch.profiler: "
+                  f"kernels and copies) of a {wall_ms:.1f} ms to-device call"
+                  + ("" if busy is None else
+                     f" = {busy / wall_ms * 100:.1f}%")
+                  + "; a flipped payload byte raised ChecksumError, a "
+                    "broken element CorruptError")
+    finally:
+        dc.FLAT, dc.HOST_PARSE = True, True
+
+    # (c) the jnp engines
+    data = full[: jnp_mib << 20]
+    n = len(data)
+    ref = native.compress_framed(data, threads=4)
+    dc.PALLAS = False
+    for k in dc.ENCODE_REPLACED:
+        dc.ENCODE_REPLACED[k] = 0
+    try:
+        dc.HOST_PARSE = False
+        out, secs, counts["jnp.decompress_framed"] = counted(
+            card, "jnp decompress_framed",
+            lambda: st.decompress_framed(ref, device=dev))
+        rates["jnp.decompress_framed"] = n / secs / 1e9
+        assert out == data, "jnp decompress_framed != input"
+        del out
+        fr, secs, counts["jnp.compress_framed"] = counted(
+            card, "jnp compress_framed",
+            lambda: st.compress_framed(data, device=dev))
+        rates["jnp.compress_framed"] = n / secs / 1e9
+        assert native.decompress_framed(fr, threads=4) == data, \
+            "jnp compress_framed does not round-trip"
+    finally:
+        dc.PALLAS, dc.HOST_PARSE = True, True
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(64)]
+    want_elems = [enp.encode_block_np(b) for b in blocks]
+    arr = np.zeros((64, 65536), np.uint8)
+    for i, b in enumerate(blocks):
+        arr[i, : len(b)] = np.frombuffer(b, np.uint8)
+    blk_d = torch.from_numpy(arr).to(dev)
+    lens_d = torch.tensor([len(b) for b in blocks], dtype=torch.int32,
+                          device=dev)
+    comp, clen, ok = ep.encode_blocks(blk_d, lens_d)
+    assert bool(ok.all()), "encode_par ok=False on the corpus"
+    comp_h, clen_h = comp.cpu().numpy(), clen.cpu().numpy()
+    for i, w in enumerate(want_elems):
+        assert comp_h[i, : clen_h[i]].tobytes() == w, f"chunk {i} != encode_np"
+    dargs = (comp, torch.zeros(64, dtype=torch.int32, device=dev), clen,
+             lens_d)
+    dec, derr = dp.decode_blocks(*dargs)
+    assert not derr.any() and torch.equal(dec, blk_d), "decode_par != input"
+    enc_ms = time_ms(lambda: ep.encode_blocks(blk_d, lens_d), 5)
+    dec_ms = time_ms(lambda: dp.decode_blocks(*dargs), 5)
+    log(card, f"jnp: {n} B, decompress_framed (HOST_PARSE=0) "
+              f"{rates['jnp.decompress_framed']:.3f} GB/s, compress_framed "
+              f"{rates['jnp.compress_framed']:.3f} GB/s ({len(fr)} B, "
+              f"replaced rows {dict(dc.ENCODE_REPLACED)}: ok=False "
+              f"'not_ok', RATIO_GUARD 'ratio_guard'); the first 64 chunks' "
+              f"emission equals encode_np; one 64-row batch: encode_blocks "
+              f"{enc_ms:.3f} ms ({64 * 65536 / enc_ms / 1e6:.3f} GB/s), "
+              f"decode_blocks {dec_ms:.3f} ms "
+              f"({int(lens_d.sum()) / dec_ms / 1e6:.3f} GB/s)")
+    rates["jnp.encode_blocks.64"] = 64 * 65536 / enc_ms / 1e6
+    rates["jnp.decode_blocks.64"] = int(lens_d.sum()) / dec_ms / 1e6
+    del comp, dec, dargs
+
+    # (d) the three mesh forms
+    dblocks, dlens, dbmax = _dryrun_batch()
+    results = {}
+    for label, mesh in (("mesh1", dm.make_mesh()),
+                        ("mesh2", dm.make_mesh(devices=[dev] * 2))):
+        def forms():
+            res = {"dry": [np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                           for x in dm.roundtrip_step(mesh, dblocks, dlens,
+                                                      dbmax)],
+                   "enc": dm.sharded_encode(mesh, arr, lens_d.cpu().numpy(),
+                                            65536)}
+            c, cl, _ = res["enc"]
+            res["dec"] = dm.sharded_decode(
+                mesh, c, np.zeros(64, np.int32), cl, lens_d.cpu().numpy(),
+                65536)
+            res["rt"] = [np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                         for x in dm.roundtrip_step(
+                             mesh, arr, lens_d.cpu().numpy(), 65536)]
+            return res
+
+        res, secs, _ = counted(card, f"{label} {mesh} sharded_encode, "
+                                     f"sharded_decode, roundtrip_step", forms)
+        for key in ("dry", "rt"):
+            comp_r, clen_r, ok_r, offs, out_r, err_r, match = res[key]
+            assert ok_r.all() and not err_r.any() and bool(match), (label, key)
+            assert (offs == np.cumsum(clen_r) - clen_r).all(), (label, key)
+        c, cl, okk = res["enc"]
+        assert okk.all()
+        for i, w in enumerate(want_elems):
+            assert c[i, : cl[i]].tobytes() == w, (label, i)
+        assert not res["dec"][1].any() and (res["dec"][0] == arr).all()
+        results[label] = res
+    for key in ("dry", "rt"):
+        for x, y in zip(results["mesh1"][key], results["mesh2"][key]):
+            assert np.array_equal(x, y), f"mesh1 != mesh2 ({key})"
+    for key in ("enc", "dec"):
+        for x, y in zip(results["mesh1"][key], results["mesh2"][key]):
+            assert np.array_equal(x, y), f"mesh1 != mesh2 ({key})"
+    log(card, "mesh forms: roundtrip_step of the dry run's 16 blocks and "
+              "sharded_encode, sharded_decode and roundtrip_step of 64 "
+              "corpus chunks on make_mesh() and on two shards of the card: "
+              "ok, err 0, match, offsets the exclusive scan, emission equal "
+              "to encode_np, the two meshes' outputs equal")
+    return rates, counts, row, err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--id-mib", type=int, default=256)
@@ -1626,6 +1869,10 @@ def main() -> int:
     ap.add_argument("--stream-mib", type=int, default=256)
     ap.add_argument("--dist-mib", type=int, default=1024,
                     help="MiB of the phase-17 loader corpus")
+    ap.add_argument("--hybrid-mib", type=int, default=256,
+                    help="MiB of the phase-18 hybrid engine run")
+    ap.add_argument("--jnp-mib", type=int, default=256,
+                    help="MiB of the phase-18 jnp engines run")
     ap.add_argument("--seed", type=int, default=20260816)
     args = ap.parse_args()
 
@@ -1694,18 +1941,21 @@ def main() -> int:
         card, dev, full[: args.stream_mib << 20], info_blob)
     del full
     di_rates, di_counts = dist_phase(card, dev, args.dist_mib, args.seed)
-    rates.update(ck_rates, **st_rates, **di_rates)
-    counts.update(ck_counts, **st_counts, **di_counts)
+    po_rates, po_counts, times["decode_pretagged"], pre_err = portable_phase(
+        card, dev, args.hybrid_mib, args.jnp_mib, args.seed)
+    rates.update(ck_rates, **st_rates, **di_rates, **po_rates)
+    counts.update(ck_counts, **st_counts, **di_counts, **po_counts)
     launches = {name: sum(c[name] for c in counts.values())
                 for name in KERNELS}
-    log(card, f"launches over every counted run (phases 9-13, 15-17): "
+    log(card, f"launches over every counted run (phases 9-13, 15-18): "
               f"{launches}")
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
-            "wavegroup": wave_err, "match_cands": match_err}
-    # no single PyTorch call computes any of the six functions (a CRC,
+            "wavegroup": wave_err, "match_cands": match_err,
+            "decode_pretagged": pre_err}
+    # no single PyTorch call computes any of the seven functions (a CRC,
     # a plan copy, an LZ decode or encode, a wave plan, a candidate
-    # search), so none has a library yardstick
+    # search, a record executor), so none has a library yardstick
     table = {"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],

@@ -66,8 +66,10 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     """Bytes a kernel's function must move for ``args`` (its wrapper's
     positional arguments): each input byte the result depends on read
     once, each output byte written once.  Rows count their stream or
-    block lengths, not their padded widths, and a flat plan the B bytes
-    its pieces copy; outputs count whole rows, which the functions
+    block lengths, not their padded widths, a flat plan the B bytes
+    its pieces copy, and host-parsed records (``decode_pretagged``) the
+    payload bytes their literals read plus 16 bytes a record; outputs
+    count whole rows, which the functions
     define (zeros after the data).  ``out_max`` is the output row's
     bytes (the flat kernel's ``dst_max``), ``out_rows`` the flat
     kernel's compose panel."""
@@ -102,6 +104,14 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
         used = ((comp != 0) * idx).amax(dim=1)
         return int(used.sum()) + int(ngroups.sum()) * 16 * 4 \
             + _nbytes(ngroups) + nb * out_max
+    if name == "decode_pretagged":
+        comp, recs, n_tags, dst_len = args
+        valid = (torch.arange(recs.shape[1], device=recs.device)[None, :]
+                 < n_tags[:, None])
+        # the payload bytes the literal records read, 16 B a record
+        lit = torch.where(valid & (recs[..., 0] == 0), recs[..., 1], 0)
+        return int(lit.sum()) + 16 * int(n_tags.sum()) \
+            + _nbytes(n_tags) + _nbytes(dst_len) + nb * out_max
     if name == "match_cands":
         words, npos = args
         return _nbytes(words) + _nbytes(npos) + nb * km._check(*args) * 4

@@ -12,15 +12,16 @@ run each device's part; here the layout is explicit:
     out.  The sharded forms return it where JAX returns a sharded array.
   - Each form runs its shard's work on the shard's device through the
     port's kernel wrappers (``crc32c_chunks``, ``decode_blocks_flat``,
-    ``find_candidates``), which launch on the tensor's device: a shard
-    on ``cuda:1`` runs on ``cuda:1``, a shard on the CPU runs the plain
-    version.  Shards are independent chunks, so no form makes a
-    collective; per-block lengths come back to the host and outputs are
+    ``find_candidates``) or its parallel codec in torch ops
+    (``encode_par.encode_blocks``, ``decode_par.decode_blocks``), which
+    run on the tensor's device: a shard on ``cuda:1`` runs on
+    ``cuda:1``, a shard on the CPU runs the plain versions.  Shards are
+    independent chunks, so no form but ``roundtrip_step`` combines
+    shards; per-block lengths come back to the host and outputs are
     assembled in block order, never in device order.
-
-Not ported: ``sharded_encode``, ``sharded_decode`` and
-``roundtrip_step`` run the JAX package's ``encode_jnp`` / ``decode_jnp``,
-which the port does not have yet.
+  - ``roundtrip_step`` has the one cross-shard result: the exclusive
+    scan of the compressed lengths and the all-shards match flag, for
+    which the per-shard lengths and flags go to the mesh's first device.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import torch
 from snappy_tpu_torch import native
 from snappy_tpu_torch.device import resolve
 from snappy_tpu_torch.errors import ChecksumError
+from snappy_tpu_torch.kernels import decode_par as _dpar
+from snappy_tpu_torch.kernels import encode_par as _epar
 from snappy_tpu_torch.kernels import match as _match
 from snappy_tpu_torch.kernels.crc32c import CHUNK, crc32c_chunks
 from snappy_tpu_torch.kernels.decode_flat import (
@@ -67,6 +70,9 @@ __all__ = [
     "make_mesh",
     "init_distributed",
     "shard_rows",
+    "sharded_encode",
+    "sharded_decode",
+    "roundtrip_step",
     "sharded_decode_flat",
     "sharded_encode_flat",
     "sharded_decode_id",
@@ -196,6 +202,10 @@ class ShardedRows:
     def numpy(self) -> np.ndarray:
         return self.cpu().numpy()
 
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
 
 def shard_rows(mesh: Mesh, rows) -> ShardedRows:
     """``rows`` (a numpy array, a tensor or a ``ShardedRows``) laid out
@@ -274,6 +284,66 @@ def _elements(elems: list[bytes]):
     dlens = np.array([d for d, _ in heads], np.int64)
     hdrs = np.array([h for _, h in heads], np.int64)
     return buf, np.cumsum(lens) - lens, lens, hdrs, dlens
+
+
+def sharded_encode(mesh: Mesh, blocks: np.ndarray, lens: np.ndarray,
+                   bmax: int):
+    """The parallel encoder (``encode_par``) data-parallel over the mesh:
+    a [B, bmax] batch, padded to a mesh multiple, each shard encoded on
+    its device with no collective.  Returns host numpy (comp, comp_len,
+    ok)."""
+    (blocks, lens), b = _pad_to_mesh(mesh, blocks, lens)
+    res = [_epar.encode_blocks(blk, ln, bmax=bmax)
+           for blk, ln in _shards(mesh, blocks, lens)]
+    return tuple(_host([r[i] for r in res], b) for i in range(3))
+
+
+def sharded_decode(mesh: Mesh, comp: np.ndarray, start: np.ndarray,
+                   comp_len: np.ndarray, dst_len: np.ndarray, out_max: int):
+    """The parallel decoder (``decode_par``) data-parallel over the mesh:
+    a padded compressed batch, each shard decoded on its device with no
+    collective.  Returns host numpy (out [B, out_max], err [B])."""
+    (comp, start, comp_len, dst_len), b = _pad_to_mesh(
+        mesh, comp, start, comp_len, dst_len)
+    res = [_dpar.decode_blocks(*parts, out_max=out_max)
+           for parts in _shards(mesh, comp, start, comp_len, dst_len)]
+    return _host([o for o, _ in res], b), _host([e for _, e in res], b)
+
+
+def roundtrip_step(mesh: Mesh, blocks, lens, bmax: int):
+    """The encode -> scan -> decode pipeline over the mesh
+    (``_roundtrip_jit``'s step): each shard's device encodes its blocks
+    in parallel, decodes the element streams it produced and checks them
+    against its blocks.  The per-shard compressed lengths and match flags
+    then go to the mesh's first device, where the exclusive scan of the
+    lengths (the offsets a framed assembler uses) and the all-shards
+    match flag are computed.  ``blocks`` [B, bmax] and ``lens`` [B], B a
+    mesh multiple.
+
+    Returns (comp, clen, ok, offsets, out, err, match): comp, clen, ok,
+    out and err as ``ShardedRows`` over the mesh, offsets an int32 [B]
+    tensor and match a bool scalar tensor on the first device."""
+    blocks, lens = shard_rows(mesh, blocks), shard_rows(mesh, lens)
+    parts = []
+    for blk, ln in zip(blocks.shards, lens.shards):
+        ln = ln.to(torch.int32)
+        comp, clen, ok = _epar.encode_blocks(blk, ln, bmax=bmax)
+        out, err = _dpar.decode_blocks(comp, torch.zeros_like(clen), clen,
+                                       ln, out_max=bmax)
+        inside = (torch.arange(bmax, device=blk.device)[None, :]
+                  < ln[:, None])
+        match = torch.where(inside, out == blk, True).all()
+        parts.append((comp, clen, ok, out, err, match))
+    first = mesh.devices[0]
+    clen_all = torch.cat([p[1].to(first) for p in parts])
+    offsets = torch.cumsum(clen_all, 0).to(torch.int32) - clen_all
+    match = torch.stack([p[5].to(first) for p in parts]).all()
+
+    def sharded(i):
+        return ShardedRows(mesh, [p[i] for p in parts])
+
+    return (sharded(0), sharded(1), sharded(2), offsets, sharded(3),
+            sharded(4), match)
 
 
 def stage_flat_dec_batch(elems: list[bytes], cmax: int | None = None):

@@ -142,6 +142,8 @@ def _declare(lib) -> None:
     lib.snc_match_cands.argtypes = [p, p, i32, i32, p, i32, p]
     lib.snc_match_blocks_per_sm.restype = ctypes.c_int
     lib.snc_match_blocks_per_sm.argtypes = [i32, p]
+    lib.snc_pretagged.restype = ctypes.c_int
+    lib.snc_pretagged.argtypes = [p, i64, i32, p, i32, p, p, p, i32, i32, p]
     lib.snc_error_string.restype = ctypes.c_char_p
     lib.snc_error_string.argtypes = [ctypes.c_int]
 

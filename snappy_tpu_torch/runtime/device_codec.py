@@ -1,37 +1,56 @@
-"""The framed to-device / from-device codec on PyTorch.
+"""The framed and raw codec entry points on PyTorch.
 
 Counterpart of ``snappy_tpu/runtime/device_codec.py``: its flat
-engines and its device LZ engine.  The engine is read from the JAX
-package's variables: ``SNAPPY_TPU_FLAT=1`` (the default) runs a flat
-engine, chosen by ``FLAT_MODE``; ``SNAPPY_TPU_FLAT=0`` with
-``SNAPPY_TPU_HOST_PARSE=0`` runs the device LZ engine.  ``FLAT=0`` with
-``HOST_PARSE=1`` is the JAX package's hybrid decode engine
-(``decode_pretagged``), which is not ported: framed decode raises
-SnappyError there.  Encode under ``FLAT=0`` ignores ``HOST_PARSE``.
+engines, its hybrid decode engine and its portable engines, plus the
+port's device LZ engine.  The engine is read from the JAX package's
+variables (``SNAPPY_TPU_FLAT``, ``SNAPPY_TPU_HOST_PARSE``,
+``SNAPPY_TPU_PALLAS``, ``SNAPPY_TPU_DEVICE_CRC``):
 
-The port's native library (``snappy_tpu_torch.native``) does the host's
-part of the flat engines: the threaded LZ walk, the matcher and the
-framed assembly.  Their device part depends on ``FLAT_MODE``:
+  =========================================  ==============  ==============
+  variables                                  framed decode   encode
+  =========================================  ==============  ==============
+  defaults (FLAT=1, PALLAS auto)             id / classify   id / classify
+  FLAT=0, HOST_PARSE=1                       hybrid          seq
+  FLAT=0, HOST_PARSE=0                       seq             seq
+  PALLAS=0, HOST_PARSE=1, device CRC on      hybrid          jnp
+  PALLAS=0, HOST_PARSE=0 or device CRC off   jnp             jnp
+  =========================================  ==============  ==============
 
-  "id" (default)  decode: the native walk decodes each chunk straight
-                  into a 64 KiB row of a 520-row staging panel; the
-                  device checks each chunk's CRC-32C where the bytes
-                  land (``kernels.crc32c``).  encode: the device
-                  computes each chunk's CRC-32C while the native
-                  matcher assembles the framed records
-                  (``sn_compress_framed_crc``).
-  "classify"      the native stagers emit flat plans and the device
-                  executes them (``kernels.decode_flat``): framed decode,
-                  segmented raw decode, and the encode replay of the
-                  host matcher's element.
+"device CRC on" is ``verify_checksums`` with ``DEVICE_CRC``.  PALLAS
+"auto" and "1" leave the port's kernel engines on; "0" turns the flat
+and seq engines off and the port does what the JAX package does with
+``_pallas_enabled()`` false: framed decode and encode as in the table,
+raw decode through the native decoder (``decompress_to_device`` uploads
+its result), and the from-device encoders on the native matcher with
+device CRCs.  Under FLAT=0 with PALLAS on, raw decode is native too.
 
-The device LZ engine ("seq") does the LZ work on the device: each
-compressed chunk's payload goes up as is and one warp decodes it
-(``kernels.decode_seq``), each 64 KiB chunk goes up as is and one warp
-runs the reference matcher on it (``kernels.encode_seq``), and the
-chunk CRCs are computed on the device too.  Only the elements, the CRCs
-and the error codes come back.  Raw-stream decode stays on the host, as
-in the JAX package: a raw stream is not a set of independent blocks.
+  id (default)  decode: the native walk decodes each chunk straight into
+                a 64 KiB row of a 520-row staging panel; the device
+                checks each chunk's CRC-32C where the bytes land
+                (``kernels.crc32c``).  encode: the device computes each
+                chunk's CRC-32C while the native matcher assembles the
+                framed records (``sn_compress_framed_crc``).
+  classify      the native stagers emit flat plans and the device
+                executes them (``kernels.decode_flat``): framed decode,
+                segmented raw decode, and the encode replay of the host
+                matcher's element.
+  seq           the device LZ engine: each compressed payload goes up as
+                is and one warp decodes it (``kernels.decode_seq``), each
+                64 KiB chunk goes up as is and one warp runs the
+                reference matcher on it (``kernels.encode_seq``), and the
+                CRCs are computed on the device too.
+  hybrid        the native parser (``parse_tags``) validates each
+                compressed payload and emits one record per element; the
+                payload rows and the records go up, the record executor
+                (``kernels.decode_pretagged``) builds the rows on the
+                device and their CRCs are checked there.
+  jnp           the portable engines, torch ops on the device: the
+                payload rows go up and the parallel decoder
+                (``kernels.decode_par``) parses, checks and decodes them;
+                the parallel encoder (``kernels.encode_par``) encodes the
+                chunk rows.  A row the encoder cannot certify (ok=False)
+                takes the native encoder's element, and with
+                ``RATIO_GUARD`` so does a row longer than it.
 
 Host buffers that feed a transfer are pinned on a GPU and reused in
 rounds of ``_NSETS``; each round records a CUDA event after its
@@ -41,7 +60,8 @@ reads.  Without the native library every entry point raises.
 
 The only host decodes are the reference's per-chunk format fallbacks
 (a plan over its caps, a payload wider than ``_DECODE_CMAX``, a copy
-offset past 64 KiB); ``HOST_FALLBACKS`` counts them.
+offset past 64 KiB); ``HOST_FALLBACKS`` counts them.  ``ENCODE_REPLACED``
+counts the jnp encoder's rows replaced by the native encoder's.
 """
 
 from __future__ import annotations
@@ -84,8 +104,14 @@ from snappy_tpu_torch.kernels.decode_flat import (
     decode_blocks_flat,
     rows_b_for,
 )
+from snappy_tpu_torch.kernels import decode_par as _dpar
 from snappy_tpu_torch.kernels import decode_seq as _dseq
+from snappy_tpu_torch.kernels import encode_par as _epar
 from snappy_tpu_torch.kernels import encode_seq as _eseq
+from snappy_tpu_torch.kernels.decode_pretagged import (
+    decode_blocks_pretagged,
+    record_cap,
+)
 from snappy_tpu_torch.kernels.decode_seq import ERR_MESSAGES, decode_blocks_seq
 from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
 
@@ -93,10 +119,16 @@ from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
 BATCH = int(os.environ.get("SNAPPY_TPU_BATCH", "64"))
 # Device CRC-32C of every chunk; "0" checks and computes CRCs on the host.
 DEVICE_CRC = os.environ.get("SNAPPY_TPU_DEVICE_CRC", "1") != "0"
-# Flat engines ("1", default) or the device LZ engine ("0", with
-# HOST_PARSE "0"); the same variables as the JAX package's.
+# Flat engines ("1", default), else the hybrid ("1") or device LZ ("0")
+# decode engine by HOST_PARSE; the same variables as the JAX package's.
 FLAT = os.environ.get("SNAPPY_TPU_FLAT", "1") != "0"
 HOST_PARSE = os.environ.get("SNAPPY_TPU_HOST_PARSE", "1") != "0"
+# The JAX package's kernel-engine gate: "auto" and "1" leave the flat and
+# seq engines on, "0" turns them off (the hybrid and jnp engines then).
+PALLAS = os.environ.get("SNAPPY_TPU_PALLAS", "auto") != "0"
+# jnp encode: replace a row's element by the native encoder's when that
+# one is shorter (one host encode per chunk).
+RATIO_GUARD = os.environ.get("SNAPPY_TPU_RATIO_GUARD", "1") != "0"
 # Flat engine mode: "id" (identity staging + device CRC) or "classify".
 FLAT_MODE = os.environ.get("SNAPPY_TPU_FLAT_MODE", "id")
 
@@ -105,9 +137,14 @@ _ID_ROWS = 520        # 512 image rows + 8 guard rows (wide-copy slop)
 _RAW_SEG = 65536      # output bytes per segment of a raw stream
 _RAW_SEG_CMAX = 2 * 65536  # payload slice cap per raw segment
 _NSETS = 2            # rounds of host staging buffers in flight
+# most records a payload of _DECODE_CMAX bytes holds (every element is at
+# least 2 bytes), plus slack: sn_parse_tags never runs out on a valid one
+_T_CAP = _DECODE_CMAX // 2 + 2
 
 # per-chunk host decodes, by cause
 HOST_FALLBACKS = {"plan_overflow": 0, "oversize_payload": 0, "far_offset": 0}
+# jnp encode rows that took the native encoder's element, by cause
+ENCODE_REPLACED = {"not_ok": 0, "ratio_guard": 0}
 
 
 def _native():
@@ -137,16 +174,22 @@ def _bucket_cmax(kmax: int) -> int:
     return next((c for c in (16640, 33280) if kmax <= c), _DECODE_CMAX)
 
 
-def _decode_engine() -> str:
-    """The framed decode engine: "id", "classify" or "seq"."""
+def _decode_engine(dev_crc: bool) -> str:
+    """The framed decode engine: "id", "classify", "seq", "hybrid" or
+    "jnp" (the module docstring's table); ``dev_crc``: the CRCs are
+    checked on the device."""
+    if not PALLAS:
+        return "hybrid" if HOST_PARSE and dev_crc else "jnp"
     if FLAT:
         return "id" if FLAT_MODE == "id" else "classify"
-    if HOST_PARSE:
-        raise SnappyError(
-            "the hybrid host-parse decode engine (SNAPPY_TPU_FLAT=0 with "
-            "SNAPPY_TPU_HOST_PARSE=1) is not ported to snappy_tpu_torch; "
-            "SNAPPY_TPU_HOST_PARSE=0 selects the device LZ engine")
-    return "seq"
+    return "hybrid" if HOST_PARSE else "seq"
+
+
+def _encode_engine() -> str:
+    """The encode engine: "flat" (id or classify), "seq" or "jnp"."""
+    if not PALLAS:
+        return "jnp"
+    return "flat" if FLAT else "seq"
 
 
 class _HostSet:
@@ -312,7 +355,8 @@ def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
     host array ``out`` at per-chunk offsets ``dst_offs``."""
     device = resolve(device)
     _native()
-    engine = _decode_engine()
+    use_dev_crc = verify_checksums and DEVICE_CRC
+    engine = _decode_engine(use_dev_crc)
     subset = list(subset)
     host_checked: set = set()  # chunks whose CRC the host verifies
     all_comp = [i for i in subset if chunks[i][0] == CHUNK_COMPRESSED]
@@ -330,13 +374,15 @@ def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
             host_checked.add(i)
 
     if comp_idx:
-        use_dev_crc = verify_checksums and DEVICE_CRC
         if engine == "id":
             _decode_id_batches(src_arr, chunks, comp_idx, dst_offs, out,
                                use_dev_crc, device)
-        elif engine == "seq":
+        elif engine in ("seq", "jnp"):
             _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                                use_dev_crc, device)
+                                use_dev_crc, device, engine)
+        elif engine == "hybrid":
+            _decode_hybrid_batches(src_arr, chunks, comp_idx, dst_offs, out,
+                                   use_dev_crc, device)
         else:
             host_checked |= _decode_classify_batches(
                 src_arr, chunks, comp_idx, dst_offs, out, use_dev_crc,
@@ -489,7 +535,7 @@ def _decode_classify_batches(src_arr, chunks, comp_idx, dst_offs, out,
 
 
 def _seq_dec_sets(device, rows: int, host_out: bool):
-    """Host sets of the device LZ decode: payload rows, the per-row
+    """Host sets of the seq and jnp decodes: payload rows, the per-row
     (starts, clens, dlens, CRC lengths) words, and what comes back."""
     shapes = dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
                   meta=((4 * rows,), torch.int32),
@@ -499,12 +545,19 @@ def _seq_dec_sets(device, rows: int, host_out: bool):
     return _host_sets(device, **shapes)
 
 
+# the payload-row decoders: (comp, starts, clens, dlens, out_max=) ->
+# (rows, err), and their error messages
+_ROW_DECODERS = {"seq": (decode_blocks_seq, ERR_MESSAGES),
+                 "jnp": (_dpar.decode_blocks, _dpar.ERR_MESSAGES)}
+
+
 def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
-                  host_out: bool) -> torch.Tensor:
+                  host_out: bool, engine: str = "seq") -> torch.Tensor:
     """Stage one batch of scanned chunks into ``hs``'s pinned payload
-    rows, upload them, launch the sequential decode (and the CRC of its
-    rows when asked), and queue the fetch of the error codes and CRCs
-    (and with ``host_out`` the decoded rows) into ``hs``.  A compressed
+    rows, upload them, launch the engine's decode (the sequential kernel
+    for "seq", the parallel decoder for "jnp"; and the CRC of its rows
+    when asked), and queue the fetch of the error codes and CRCs (and
+    with ``host_out`` the decoded rows) into ``hs``.  A compressed
     chunk's row is its payload (the element
     stream starts after the varint header); an uncompressed chunk's row
     is its data, decoded as an empty stream and copied into place on
@@ -524,8 +577,8 @@ def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
             meta[:, row] = (0, 0, 0, dst_len)
     comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
     meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
-    dec, err = decode_blocks_seq(comp, meta_d[0], meta_d[1], meta_d[2],
-                                 out_max=MAX_CHUNK_UNCOMPRESSED)
+    dec, err = _ROW_DECODERS[engine][0](comp, meta_d[0], meta_d[1], meta_d[2],
+                                        out_max=MAX_CHUNK_UNCOMPRESSED)
     for row, ch in enumerate(grp):
         if ch[0] != CHUNK_COMPRESSED:
             dec[row, : ch[2]].copy_(comp[row, : ch[2]])
@@ -539,34 +592,134 @@ def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
     return dec
 
 
-def _check_seq(grp, hs: _HostSet, with_crc: bool) -> None:
+def _check_seq(grp, hs: _HostSet, with_crc: bool, engine: str = "seq") -> None:
     """Raise for the first row of a finished batch that failed: its
     decode error (CorruptError), else its CRC (ChecksumError)."""
     err, crc = hs.np["err"], hs.np["crc"]
+    messages = _ROW_DECODERS[engine][1]
     for row, ch in enumerate(grp):
         if err[row]:
-            raise CorruptError(ERR_MESSAGES.get(int(err[row]), "decode error"))
+            raise CorruptError(messages.get(int(err[row]), "decode error"))
         if with_crc and int(crc[row]) != unmask_crc(ch[3]):
             raise ChecksumError(ch[3], None)
 
 
 def _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                        use_dev_crc: bool, device) -> None:
-    """Device LZ engine, host output: the payloads go up, the sequential
-    kernel decodes and CRCs them, the decoded rows come back.  Batch k+1
-    is staged while batch k runs."""
-    step = _seq_width(_dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
+                        use_dev_crc: bool, device, engine: str = "seq") -> None:
+    """Device LZ engine ("seq") or jnp engine, host output: the payloads
+    go up, the sequential kernel (at the card's width) or the parallel
+    decoder (BATCH rows) decodes them and the CRC kernel checksums them,
+    the decoded rows come back.  Batch k+1 is staged while batch k
+    runs."""
+    step = BATCH if engine == "jnp" else _seq_width(
+        _dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
     sets = _seq_dec_sets(device, min(step, len(comp_idx)), host_out=True)
 
     def dispatch(k, base):
         grp = [chunks[i] for i in comp_idx[base : base + step]]
         hs = sets[k % _NSETS]
-        _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True)
+        _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True,
+                      engine=engine)
         return comp_idx[base : base + step], grp, hs
 
     for idx, grp, hs in _one_behind(range(0, len(comp_idx), step), dispatch):
         hs.wait()
-        _check_seq(grp, hs, use_dev_crc)
+        _check_seq(grp, hs, use_dev_crc, engine)
+        res = hs.np["res"]
+        for row, i in enumerate(idx):
+            d = chunks[i][4]
+            out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
+
+
+def _hybrid_sets(device, rows: int, host_out: bool):
+    """Host sets of the hybrid decode: payload rows, the records (at most
+    ``_T_CAP`` a row), the per-row (record counts, decoded lengths, CRC
+    lengths) words, and what comes back."""
+    shapes = dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
+                  recs=((rows * _T_CAP * 4,), torch.int32),
+                  meta=((3 * rows,), torch.int32),
+                  crc=((rows,), torch.int64))
+    if host_out:
+        shapes["res"] = ((rows, MAX_CHUNK_UNCOMPRESSED), torch.uint8)
+    return _host_sets(device, **shapes)
+
+
+def _parse_rows(rows: np.ndarray, grp) -> list:
+    """The native parser's records of each compressed chunk of ``grp``
+    (its payload staged in ``rows``), an empty array for a stored one.
+    Raises CorruptError at the first payload that does not parse."""
+    nat = _native()
+    tmp = np.empty((_T_CAP, 4), dtype=np.int32)
+    parsed = []
+    for row, (ctype, _p_off, p_len, _crc, dst_len, hdr) in enumerate(grp):
+        nt = 0
+        if ctype == CHUNK_COMPRESSED:
+            nt = nat.parse_tags(memoryview(rows[row, :p_len]), hdr, dst_len,
+                                tmp)
+        parsed.append(tmp[:nt].copy())
+    return parsed
+
+
+def _dispatch_hybrid(src_arr, grp, hs: _HostSet, device, with_crc: bool,
+                     host_out: bool) -> torch.Tensor:
+    """Stage one batch of scanned chunks for the hybrid engine: payload
+    rows into ``hs``'s pinned rows (at the batch's bucket width), the
+    native parser's records of each (padded to the batch's record cap,
+    ``record_cap``), then upload them, run the record executor and, when
+    asked, the CRC kernel, and queue the CRCs (and with ``host_out`` the
+    rows) back into ``hs``.  A stored chunk's row is its data, executed
+    as no records and copied into place on the device.  Returns the
+    device rows [len(grp), 64 KiB]."""
+    ng = len(grp)
+    hs.wait()
+    cmax = _bucket_cmax(max(ch[2] for ch in grp))
+    rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
+    for row, ch in enumerate(grp):
+        rows[row, : ch[2]] = src_arr[ch[1] : ch[1] + ch[2]]
+    parsed = _parse_rows(rows, grp)
+    t_cap = record_cap(max(len(p) for p in parsed), _T_CAP)
+    recs = hs.np["recs"][: ng * t_cap * 4].reshape(ng, t_cap, 4)
+    meta = hs.np["meta"][: 3 * ng].reshape(3, ng)
+    for row, (p, ch) in enumerate(zip(parsed, grp)):
+        recs[row, : len(p)] = p
+        compressed = ch[0] == CHUNK_COMPRESSED
+        meta[:, row] = (len(p), ch[4] if compressed else 0, ch[4])
+    comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
+    recs_d = _upload(hs.t["recs"][: ng * t_cap * 4], device).view(
+        ng, t_cap, 4)
+    meta_d = _upload(hs.t["meta"][: 3 * ng], device).view(3, ng)
+    dec = decode_blocks_pretagged(comp, recs_d, meta_d[0], meta_d[1],
+                                  out_max=MAX_CHUNK_UNCOMPRESSED)
+    for row, ch in enumerate(grp):
+        if ch[0] != CHUNK_COMPRESSED:
+            dec[row, : ch[2]].copy_(comp[row, : ch[2]])
+    if with_crc:
+        hs.t["crc"][:ng].copy_(crc32c_chunks(dec, meta_d[2]),
+                               non_blocking=True)
+    if host_out:
+        hs.t["res"][:ng].copy_(dec, non_blocking=True)
+    hs.record()
+    return dec
+
+
+def _decode_hybrid_batches(src_arr, chunks, comp_idx, dst_offs, out,
+                           use_dev_crc: bool, device) -> None:
+    """Hybrid engine, host output: the native parser's records and the
+    payloads go up, the record executor builds the rows and the CRC
+    kernel checks them, the rows come back.  Batch k+1 is parsed and
+    staged while batch k runs."""
+    sets = _hybrid_sets(device, min(BATCH, len(comp_idx)), host_out=True)
+
+    def dispatch(k, base):
+        grp = [chunks[i] for i in comp_idx[base : base + BATCH]]
+        hs = sets[k % _NSETS]
+        _dispatch_hybrid(src_arr, grp, hs, device, use_dev_crc, host_out=True)
+        return comp_idx[base : base + BATCH], grp, hs
+
+    for idx, grp, hs in _one_behind(range(0, len(comp_idx), BATCH), dispatch):
+        hs.wait()
+        if use_dev_crc:
+            _check_crcs(grp, hs.np["crc"])
         res = hs.np["res"]
         for row, i in enumerate(idx):
             d = chunks[i][4]
@@ -618,17 +771,20 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     come back.  Device LZ engine: the payloads go up, the sequential
     kernel decodes them and checks their CRCs on the device, and the
     decoded rows go into the output tensor the same way; only the error
-    codes and CRC values come back.  Streams whose chunks are not all
-    full 64 KiB rows but the last, and classify mode, decode through
-    ``decompress_framed`` and upload the result."""
+    codes and CRC values come back.  Hybrid engine: the payloads and the
+    native parser's records go up, the record executor builds the rows
+    and their CRCs are checked there; only the CRC values come back.
+    Streams whose chunks are not all full 64 KiB rows but the last, and
+    the classify and jnp engines, decode through ``decompress_framed``
+    and upload the result."""
     chunks, total = _scan_frames(data)
     device = resolve(device)
     _native()
     uniform = total > 0 and all(
         ch[4] == _CRC_CHUNK for ch in chunks[:-1]) and all(
         ch[2] <= _DECODE_CMAX for ch in chunks if ch[0] == CHUNK_COMPRESSED)
-    engine = _decode_engine()
-    if not (engine in ("id", "seq") and DEVICE_CRC and uniform):
+    engine = _decode_engine(verify_checksums and DEVICE_CRC)
+    if not (engine in ("id", "seq", "hybrid") and DEVICE_CRC and uniform):
         return _upload_bytes(
             decompress_framed(data, verify_checksums, device=device), device)
     src_arr = np.frombuffer(data, np.uint8)
@@ -637,6 +793,9 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     if seq:
         step = _seq_width(_dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
         sets = _seq_dec_sets(device, min(step, len(chunks)), host_out=False)
+    elif engine == "hybrid":
+        step = BATCH
+        sets = _hybrid_sets(device, min(step, len(chunks)), host_out=False)
     else:
         step = BATCH
         sets = _id_sets(device)
@@ -647,6 +806,9 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
         if seq:
             rows = _dispatch_seq(src_arr, grp, hs, device, verify_checksums,
                                  host_out=False)
+        elif engine == "hybrid":
+            rows = _dispatch_hybrid(src_arr, grp, hs, device,
+                                    verify_checksums, host_out=False)
         else:
             rows = _dispatch_id(src_arr, grp, hs, device, verify_checksums)
         # every chunk but the stream's last fills its 64 KiB row
@@ -723,11 +885,11 @@ def decompress(data: bytes, device=None) -> bytes:
     """Raw Snappy stream decode to host bytes.  Id mode: the native walk
     is the decode (a raw stream has no CRC for the device to check).
     Classify mode: the segmented flat engine on the device, the native
-    decoder for unplannable streams.  Device LZ engine: the native
+    decoder for unplannable streams.  Every other engine: the native
     decoder, as in the JAX package."""
     dst_len, hdr = read_uvarint(data, 0)
     nat = _native()
-    if FLAT and FLAT_MODE != "id":
+    if PALLAS and FLAT and FLAT_MODE != "id":
         got = _decompress_raw_flat(data, dst_len, hdr, resolve(device))
         if got is not None:
             return got.cpu().numpy().tobytes()
@@ -744,12 +906,11 @@ def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
     one preallocated device tensor.  Classify mode: the segmented flat
     engine.  Streams with a copy offset past 64 KiB (which no real
     encoder emits) or an unplannable segment decode on the host, and so
-    does every stream under the device LZ engine, as in the JAX
-    package."""
+    does every stream under the other engines, as in the JAX package."""
     dst_len, hdr = read_uvarint(data, 0)
     device = resolve(device)
     nat = _native()
-    if not FLAT:
+    if not (PALLAS and FLAT):
         return _upload_bytes(nat.decompress(data), device)
     if FLAT_MODE != "id":
         got = _decompress_raw_flat(data, dst_len, hdr, device)
@@ -884,6 +1045,80 @@ def _encode_batches(data, chunk_size: int, device):
             yield base + i, int(lens[i]), blob
 
 
+def _native_element(chunk) -> bytes:
+    """The native encoder's element of one chunk (no varint header)."""
+    comp = _native().compress(bytes(chunk))
+    return comp[read_uvarint(comp, 0)[1] :]
+
+
+def _encode_jnp(data, chunk_size: int, device):
+    """jnp engine: yield (chunk_index, chunk_len, element_bytes) for every
+    chunk of data.  Each batch of BATCH chunk rows (``bmax`` the chunk
+    size rounded up to a power of two, at least 256) goes up through
+    pinned rows and the parallel encoder (``kernels.encode_par``) encodes
+    it; the lengths and flags come back, then the elements cut to the
+    batch's longest.  A row with ok=False, and with RATIO_GUARD a row
+    longer than the native encoder's element, takes the native element
+    (``ENCODE_REPLACED`` counts them).  Batch k+1 is staged while batch k
+    runs."""
+    data = memoryview(data)
+    n = len(data)
+    n_chunks = -(-n // chunk_size)
+    if n_chunks == 0:
+        return
+    bmax = 256
+    while bmax < chunk_size:
+        bmax *= 2
+    rows = min(BATCH, n_chunks)
+    src = np.frombuffer(data, np.uint8)
+    sets = _host_sets(device, blocks=((rows, bmax), torch.uint8),
+                      lens=((rows,), torch.int32),
+                      clens=((rows,), torch.int32), ok=((rows,), torch.bool))
+
+    def dispatch(k, base):
+        cnt = min(BATCH, n_chunks - base)
+        hs = sets[k % _NSETS]
+        hs.wait()
+        blocks = hs.np["blocks"][:cnt]
+        lens = hs.np["lens"][:cnt]
+        for i in range(cnt):
+            off = (base + i) * chunk_size
+            ln = min(chunk_size, n - off)
+            blocks[i, :ln] = src[off : off + ln]
+            blocks[i, ln:] = 0
+            lens[i] = ln
+        comp, clens, ok = _epar.encode_blocks(
+            _upload(hs.t["blocks"][:cnt], device),
+            _upload(hs.t["lens"][:cnt], device), bmax=bmax)
+        hs.t["clens"][:cnt].copy_(clens, non_blocking=True)
+        hs.t["ok"][:cnt].copy_(ok, non_blocking=True)
+        hs.record()
+        return base, cnt, hs, comp
+
+    for base, cnt, hs, comp in _one_behind(range(0, n_chunks, BATCH),
+                                           dispatch):
+        hs.wait()
+        clens = hs.np["clens"][:cnt].copy()
+        ok = hs.np["ok"][:cnt].copy()
+        lens = hs.np["lens"][:cnt].copy()
+        kmax = min((int(clens.max()) + 511) & ~511, comp.shape[1])
+        comp_h = comp[:, :kmax].cpu().numpy()
+        for i in range(cnt):
+            off = (base + i) * chunk_size
+            chunk = data[off : off + int(lens[i])]
+            if ok[i]:
+                blob = comp_h[i, : int(clens[i])].tobytes()
+            else:  # a hash collision: the native element
+                ENCODE_REPLACED["not_ok"] += 1
+                blob = _native_element(chunk)
+            if RATIO_GUARD:
+                ref = _native_element(chunk)
+                if len(ref) < len(blob):
+                    ENCODE_REPLACED["ratio_guard"] += 1
+                    blob = ref
+            yield base + i, int(lens[i]), blob
+
+
 def _stored(chunk_len: int, clen: int) -> bool:
     """Whether the framed format stores a chunk uncompressed, given the
     length of its element."""
@@ -1006,8 +1241,12 @@ def compress(data: bytes, device=None) -> bytes:
         raise TooLargeError(len(data))
     device = resolve(device)
     out = bytearray(put_uvarint(len(data)))
-    if FLAT:
+    engine = _encode_engine()
+    if engine == "flat":
         for _, _, blob in _encode_batches(data, MAX_BLOCK_SIZE, device):
+            out += blob
+    elif engine == "jnp":
+        for _, _, blob in _encode_jnp(data, MAX_BLOCK_SIZE, device):
             out += blob
     else:
         for _, _, elem, _, _ in _encode_seq(data, MAX_BLOCK_SIZE, device,
@@ -1020,18 +1259,24 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
                     device=None) -> bytes:
     """Framed (.sz) stream.  Id mode with 64 KiB chunks: device CRCs
     plus one native matcher-and-assembly call per batch.  Device LZ
-    engine: elements and CRCs from the device (``_encode_seq``).
-    Otherwise chunk elements from ``_encode_batches`` with host CRCs."""
+    engine: elements and CRCs from the device (``_encode_seq``).  jnp
+    engine: elements from ``_encode_jnp`` with host CRCs, as in the JAX
+    package.  Otherwise chunk elements from ``_encode_batches`` with
+    host CRCs."""
     if not 0 < chunk_size <= MAX_CHUNK_UNCOMPRESSED:
         raise ValueError(f"chunk_size must be in (0, 65536], got {chunk_size}")
     device = resolve(device)
     nat = _native()
-    if (FLAT and FLAT_MODE == "id" and chunk_size == MAX_CHUNK_UNCOMPRESSED
-            and len(data)):
+    engine = _encode_engine()
+    if (engine == "flat" and FLAT_MODE == "id"
+            and chunk_size == MAX_CHUNK_UNCOMPRESSED and len(data)):
         return _compress_framed_id(data, device)
-    if FLAT:
+    if engine == "flat":
         chunks = ((idx, ln, blob, None) for idx, ln, blob
                   in _encode_batches(data, chunk_size, device))
+    elif engine == "jnp":
+        chunks = ((idx, ln, blob, None) for idx, ln, blob
+                  in _encode_jnp(data, chunk_size, device))
     else:
         chunks = ((idx, ln, elem, crc) for idx, ln, elem, crc, _
                   in _encode_seq(data, chunk_size, device, DEVICE_CRC))
@@ -1107,7 +1352,8 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     ``compress_framed(bytes(arr))`` in id mode: same matcher, same CRCs.
     Device LZ engine: the tensor's chunks are encoded and CRC'd where
     they lie (``_encode_seq``); only elements and CRCs come back, plus
-    the bytes of chunks stored uncompressed."""
+    the bytes of chunks stored uncompressed.  The jnp engine takes the
+    id path, as the JAX package does."""
     _check_uint8(arr)
     device = arr.device if device is None else resolve(device)
     arr = arr.to(device).reshape(-1)
@@ -1116,7 +1362,7 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
         return bytes(STREAM_ID_CHUNK)
     nat = _native()
     cs = MAX_CHUNK_UNCOMPRESSED
-    if not FLAT:
+    if _encode_engine() == "seq":
         out = bytearray(STREAM_ID_CHUNK)
         for _, ln, elem, crc, stored in _encode_seq(arr, cs, device,
                                                     DEVICE_CRC):
@@ -1163,9 +1409,10 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     the tensor once, then the native encoder emits the stream.
     Byte-identical to ``compress(bytes(arr))`` in id mode.  Device LZ
     engine: the tensor's 64 KiB blocks are encoded where they lie and
-    only the elements come back."""
+    only the elements come back.  The jnp engine takes the native
+    encoder, as the JAX package does."""
     _check_uint8(arr)
-    if not FLAT:
+    if _encode_engine() == "seq":
         device = arr.device if device is None else resolve(device)
         arr = arr.to(device).reshape(-1)
         out = bytearray(put_uvarint(int(arr.numel())))

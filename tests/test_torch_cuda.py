@@ -840,3 +840,155 @@ def test_multihost_entry_points_on_card(cuda_device):
     before = kc.launches
     bodies, _ = mh.host_compress_framed(data, 0)
     assert fr[:10] + b"".join(bodies) == fr and kc.launches > before
+
+
+def _framed_payloads(data):
+    """(payloads, element starts, decoded lengths) of the compressed
+    chunks of native.compress_framed(data)."""
+    fr = native.compress_framed(data)
+    chunks, _ = dc._scan_frames(fr)
+    comp = [ch for ch in chunks if ch[0] == 0]
+    return ([fr[ch[1] : ch[1] + ch[2]] for ch in comp],
+            [ch[5] for ch in comp], [ch[4] for ch in comp])
+
+
+@pytest.mark.parametrize("out_max", [65536, 4097, 99_999])
+def test_pretagged_kernel_matches_plain(cuda_device, out_max):
+    """The record executor on a runtime-shaped batch (64 corpus chunks,
+    the parser's records, the bucket of the widest payload) and on
+    hand-made streams (a run-length chain, copies shorter than their
+    offset), against its plain version on the same card tensors; rows
+    wider than the shared image (99,999) run in device memory."""
+    from snappy_tpu_torch.kernels import decode_pretagged as kp
+
+    payloads, starts, dlens = _framed_payloads(_corpus(23, 4 << 20))
+    payloads, starts, dlens = payloads[:62], starts[:62], dlens[:62]
+    lit = bytes(range(200))
+    for body, d in ((b"\x00a" + bytes([(59 << 2) | 2, 1, 0]) * 50, 3001),
+                    (bytes([61 << 2, 199, 0]) + lit
+                     + bytes([(63 << 2) | 2, 3, 0]) * 9, 776)):
+        payloads.append(put_uvarint(d) + body)
+        starts.append(len(put_uvarint(d)))
+        dlens.append(d)
+    args = kp.stage_records(payloads, starts, dlens, device=cuda_device)
+    before = kp.launches
+    got = kp.decode_blocks_pretagged(*args, out_max=out_max)
+    torch.cuda.synchronize()
+    assert kp.launches == before + 1
+    assert torch.equal(got, kp.decode_blocks_pretagged_plain(
+        *args, out_max=out_max))
+    for i, p in enumerate(payloads):
+        want = native.decompress(p)[:out_max]
+        assert got[i, : len(want)].cpu().numpy().tobytes() == want
+
+
+def test_hybrid_engine_on_card(cuda_device, monkeypatch):
+    """FLAT=0 with HOST_PARSE=1: framed decode to the host and to the
+    card through the record executor and the CRC kernel, against the
+    native codec; a flipped payload byte raises ChecksumError, a broken
+    element CorruptError."""
+    from snappy_tpu_torch.kernels import decode_pretagged as kp
+
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", True)
+    # a leading 300-byte literal, then the corpus
+    data = np.random.default_rng(24).bytes(300) + _corpus(24, 8 << 20)
+    fr = native.compress_framed(data)
+    before = (kp.launches, kc.launches)
+    assert dc.decompress_framed(fr, device=cuda_device) == data
+    arr = dc.decompress_framed_to_device(fr, device=cuda_device)
+    assert arr.device == cuda_device
+    assert arr.cpu().numpy().tobytes() == data
+    assert kp.launches > before[0] and kc.launches > before[1]
+    bad = bytearray(fr)
+    bad[18 + 30] ^= 0x55  # a byte of the first chunk's leading literal
+    for fn in (dc.decompress_framed, dc.decompress_framed_to_device):
+        with pytest.raises(dc.ChecksumError):
+            fn(bytes(bad), device=cuda_device)
+    from snappy_tpu_torch.spec.crc32c import crc32c
+    from snappy_tpu_torch.spec.format import mask_crc
+
+    payload = put_uvarint(8) + b"\x0cabcd" + bytes([(3 << 2) | 2, 9, 0])
+    body = mask_crc(crc32c(b"abcdabcd")).to_bytes(4, "little") + payload
+    broken = (fr[:10] + bytes((0, len(body), 0, 0)) + body)
+    for fn in (dc.decompress_framed, dc.decompress_framed_to_device):
+        with pytest.raises(dc.CorruptError):  # copy before the block start
+            fn(broken, device=cuda_device)
+
+
+def test_portable_codec_on_card_matches_cpu(cuda_device):
+    """decode_par and encode_par on the card against their CPU results
+    on the same batches (bytes, lengths, flags, error codes)."""
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+
+    data = _corpus(25, 1 << 20)
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(6)] + [
+        data[:3000], b"\xff" * 5000, b""]
+    arr = np.zeros((len(blocks), 65536), np.uint8)
+    lens = np.array([len(b) for b in blocks], np.int32)
+    for i, b in enumerate(blocks):
+        arr[i, : len(b)] = np.frombuffer(b, np.uint8)
+    cpu = ep.encode_blocks(torch.from_numpy(arr), torch.from_numpy(lens))
+    card = ep.encode_blocks(torch.from_numpy(arr).to(cuda_device),
+                            torch.from_numpy(lens).to(cuda_device))
+    for c, g in zip(cpu, card):
+        assert g.device == cuda_device and torch.equal(c, g.cpu())
+    comp, clen, _ok = cpu
+    args = (comp, torch.zeros(len(blocks), dtype=torch.int32), clen,
+            torch.from_numpy(lens))
+    out_c, err_c = dp.decode_blocks(*args)
+    out_g, err_g = dp.decode_blocks(*(a.to(cuda_device) for a in args))
+    assert torch.equal(out_c, out_g.cpu()) and torch.equal(err_c, err_g.cpu())
+    assert not err_c.any()
+    for i, b in enumerate(blocks):
+        assert out_c[i, : len(b)].numpy().tobytes() == b
+
+
+def test_jnp_engines_on_card(cuda_device, monkeypatch):
+    """SNAPPY_TPU_PALLAS=0: the jnp encoder's framed stream on the card
+    equals the CPU's and round-trips; the jnp decoder (HOST_PARSE=0) and
+    the hybrid engine decode it on the card."""
+    monkeypatch.setattr(dc, "PALLAS", False)
+    data = _corpus(26, 2 << 20)
+    fr = dc.compress_framed(data, device=cuda_device)
+    assert fr == dc.compress_framed(data, device="cpu")
+    assert native.decompress_framed(fr) == data
+    for host_parse in (False, True):
+        monkeypatch.setattr(dc, "HOST_PARSE", host_parse)
+        assert dc.decompress_framed(fr, device=cuda_device) == data
+
+
+def test_mesh_codec_forms_on_card(cuda_device):
+    """sharded_encode, sharded_decode and roundtrip_step on two shards of
+    the card against the two-shard CPU mesh."""
+    from snappy_tpu_torch.dist import mesh as dm
+
+    card = dm.make_mesh(devices=[cuda_device] * 2)
+    cpu2 = dm.make_mesh(devices=["cpu"] * 2)
+    bmax = 1024
+    rng = np.random.default_rng(0)
+    blocks = np.zeros((16, bmax), np.uint8)
+    lens = np.zeros(16, np.int32)
+    for i in range(16):
+        row = ((b"sharded snappy block " * 50)[:bmax],
+               rng.integers(0, 256, bmax, dtype=np.uint8).tobytes(),
+               b"Z" * (bmax // 2))[i % 3]
+        blocks[i, : len(row)] = np.frombuffer(row, np.uint8)
+        lens[i] = len(row)
+    enc = dm.sharded_encode(card, blocks, lens, bmax)
+    for g, w in zip(enc, dm.sharded_encode(cpu2, blocks, lens, bmax)):
+        np.testing.assert_array_equal(g, w)
+    comp, clen, ok = enc
+    assert ok.all()
+    dec_args = (comp, np.zeros(16, np.int32), clen, lens)
+    for g, w in zip(dm.sharded_decode(card, *dec_args, out_max=bmax),
+                    dm.sharded_decode(cpu2, *dec_args, out_max=bmax)):
+        np.testing.assert_array_equal(g, w)
+    got = dm.roundtrip_step(card, blocks, lens, bmax)
+    want = dm.roundtrip_step(cpu2, blocks, lens, bmax)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g.cpu() if torch.is_tensor(g)
+                                                 else g),
+                                      np.asarray(w))
+    assert bool(got[6]) and not np.asarray(got[5]).any()

@@ -241,20 +241,162 @@ def test_broken_element_raises_corrupt(mode):
 
 
 def test_hybrid_engine_not_ported(monkeypatch, nprng):
-    """FLAT=0 with HOST_PARSE=1 is the JAX package's hybrid decode
-    engine: the port says so instead of running another engine.  Encode
-    ignores HOST_PARSE and raw decode stays on the host, as in JAX."""
+    """FLAT=0 with HOST_PARSE=1 is the hybrid decode engine (the name
+    recalls the SnappyError it raised before the port had it): framed
+    decode, to the host and to the device, gives the JAX hybrid engine's
+    bytes; encode stays on the device LZ engine (native's stream) and
+    raw decode on the host."""
     monkeypatch.setattr(dc, "FLAT", False)
     monkeypatch.setattr(dc, "HOST_PARSE", True)
-    data = _samples(nprng)[-1]
-    stream = native.compress_framed(data)
-    for dec in (dc.decompress_framed, dc.decompress_framed_to_device):
-        with pytest.raises(SnappyError, match="not ported"):
-            dec(stream, device="cpu")
+    monkeypatch.setattr(jdc, "_pallas_cache", False)
+    monkeypatch.setattr(jdc, "HOST_PARSE", True)
+    for data in _samples(nprng)[1:]:
+        stream = native.compress_framed(data)
+        want = jdc.decompress_framed(stream)
+        assert want == data
+        assert dc.decompress_framed(stream, device="cpu") == want
+        assert dc.decompress_framed_to_device(
+            stream, device="cpu").numpy().tobytes() == want
     assert dc.compress_framed(data, device="cpu") == stream
     raw = dc.compress(data, device="cpu")
     assert raw == native.compress(data)
     assert dc.decompress(raw, device="cpu") == data
+
+
+PORTABLE = ("hybrid", "jnp")
+
+
+@pytest.fixture(params=PORTABLE)
+def portable(request, monkeypatch, fallbacks):
+    """Both packages with their kernel engines off (SNAPPY_TPU_PALLAS=0:
+    the port's PALLAS, JAX's _pallas_cache), so framed decode runs the
+    hybrid engine ("hybrid", HOST_PARSE=1) or the jnp decoder ("jnp",
+    HOST_PARSE=0), and encode the jnp encoder with RATIO_GUARD."""
+    monkeypatch.setattr(jdc, "_pallas_cache", False)
+    monkeypatch.setattr(dc, "PALLAS", False)
+    hybrid = request.param == "hybrid"
+    monkeypatch.setattr(jdc, "HOST_PARSE", hybrid)
+    monkeypatch.setattr(dc, "HOST_PARSE", hybrid)
+    counts = dict.fromkeys(dc.ENCODE_REPLACED, 0)
+    monkeypatch.setattr(dc, "ENCODE_REPLACED", counts)
+    return request.param
+
+
+def test_portable_engines_match_jax(portable, nprng):
+    """Every entry point byte for byte as the JAX package's with its
+    kernel engines off: the jnp encoder's framed and raw streams (not
+    native's), the hybrid or jnp framed decode, native raw decode and the
+    native matcher with device CRCs for the from-device encoders."""
+    for data in _samples(nprng):
+        stream = dc.compress_framed(data, device="cpu")
+        assert stream == jdc.compress_framed(data), len(data)
+        assert dc.decompress_framed(stream, device="cpu") == data
+        assert jdc.decompress_framed(stream) == data
+        on_dev = dc.decompress_framed_to_device(stream, device="cpu")
+        assert on_dev.numpy().tobytes() == data
+        assert dc.compress_framed_from_device(on_dev) == \
+            jdc.compress_framed_from_device(
+                jax.device_put(np.frombuffer(data, np.uint8)))
+        raw = dc.compress(data, device="cpu")
+        assert raw == jdc.compress(data), len(data)
+        assert dc.decompress(raw, device="cpu") == data
+        assert dc.decompress_to_device(raw, device="cpu").numpy().tobytes() \
+            == data
+        assert dc.compress_from_device(on_dev) == native.compress(data)
+    assert dc.ENCODE_REPLACED == {"not_ok": 0, "ratio_guard": 0}
+
+
+@pytest.mark.parametrize("chunk_size", [1024, 40_000])
+def test_portable_small_chunk_sizes(portable, nprng, chunk_size):
+    data = _samples(nprng)[-1][:120_000]
+    stream = dc.compress_framed(data, chunk_size=chunk_size, device="cpu")
+    assert stream == jdc.compress_framed(data, chunk_size=chunk_size)
+    assert dc.decompress_framed(stream, device="cpu") == data
+
+
+def test_portable_corrupt_streams(portable, nprng, monkeypatch):
+    """The JAX package's error classes, at BATCH 2 (two batches)."""
+    monkeypatch.setattr(dc, "BATCH", 2)
+    monkeypatch.setattr(jdc, "BATCH", 2)
+    data = (nprng.bytes(300) + (b"checksum probe " * 9000)[:131072]
+            + nprng.bytes(3000))
+    stream = native.compress_framed(data)
+    crc_flip = bytearray(stream)
+    crc_flip[14] ^= 0x01
+    for dec in ("decompress_framed", "decompress_framed_to_device"):
+        _both_raise(ChecksumError,
+                    lambda: getattr(dc, dec)(bytes(crc_flip), device="cpu"),
+                    lambda: getattr(jdc, dec)(bytes(crc_flip)))
+        _both_raise(ChecksumError,
+                    lambda: getattr(dc, dec)(flip_payload(stream),
+                                             device="cpu"),
+                    lambda: getattr(jdc, dec)(flip_payload(stream)))
+        _both_raise(CorruptError,
+                    lambda: getattr(dc, dec)(stream[:-7], device="cpu"),
+                    lambda: getattr(jdc, dec)(stream[:-7]))
+        framed = _frame_one_chunk(b"\x0cabcd" + bytes([(3 << 2) | 2, 9, 0]),
+                                  b"abcdabcd")
+        _both_raise(CorruptError,
+                    lambda: getattr(dc, dec)(framed, device="cpu"),
+                    lambda: getattr(jdc, dec)(framed))
+    assert dc.decompress_framed(bytes(crc_flip), False, device="cpu") == data
+    assert jdc.decompress_framed(bytes(crc_flip), False) == data
+
+
+def flip_payload(stream: bytes) -> bytes:
+    """The first compressed chunk's stream with a byte of its leading
+    literal flipped: it still decodes, to the wrong bytes."""
+    assert stream[10] == 0x00
+    bad = bytearray(stream)
+    bad[18 + 30] ^= 0x55
+    return bytes(bad)
+
+
+def _literal_element(chunk: bytes) -> bytes:
+    """One literal holding the whole chunk: a valid element longer than
+    any the encoders emit for compressible data."""
+    from snappy_tpu_torch.spec import reference
+
+    out = bytearray()
+    reference.emit_literal(out, chunk)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("guard", [True, False])
+def test_jnp_encode_replacements(monkeypatch, guard):
+    """The jnp encoder's host fallbacks: a row with ok=False takes the
+    native element; with RATIO_GUARD a row longer than the native element
+    does too (here every row is made an all-literal element), without it
+    the long element stays and still decodes."""
+    monkeypatch.setattr(dc, "PALLAS", False)
+    monkeypatch.setattr(dc, "RATIO_GUARD", guard)
+    counts = dict.fromkeys(dc.ENCODE_REPLACED, 0)
+    monkeypatch.setattr(dc, "ENCODE_REPLACED", counts)
+    data = (b"replace me " * 20_000)[:200_000]
+    real = dc._epar.encode_blocks
+
+    def spoiled(block, n, bmax):
+        comp, clen, ok = real(block, n, bmax=bmax)
+        for i in range(block.shape[0]):
+            lit = _literal_element(block[i, : int(n[i])].numpy().tobytes())
+            comp[i, : len(lit)] = torch.frombuffer(bytearray(lit),
+                                                   dtype=torch.uint8)
+            clen[i] = len(lit)
+        ok[0] = False
+        return comp, clen, ok
+
+    monkeypatch.setattr(dc._epar, "encode_blocks", spoiled)
+    stream = dc.compress_framed(data, device="cpu")
+    n_chunks = -(-len(data) // 65536)
+    batches = -(-n_chunks // dc.BATCH)
+    assert counts["not_ok"] == batches
+    if guard:
+        assert stream == native.compress_framed(data)
+        assert counts["ratio_guard"] == n_chunks - batches
+    else:
+        assert stream != native.compress_framed(data)
+        assert counts["ratio_guard"] == 0
+    assert native.decompress_framed(stream) == data
 
 
 def _one_byte_literals(n: int):

@@ -22,6 +22,9 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.dist import mesh as tmesh
 from snappy_tpu_torch.errors import ChecksumError, CorruptError, SnappyError
 from snappy_tpu_torch.kernels import match as km
+from snappy_tpu.kernels import encode_np
+from snappy_tpu.spec import reference
+from snappy_tpu.spec.format import read_uvarint
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +106,71 @@ def test_make_mesh(monkeypatch):
         tmesh.make_mesh()  # never falls back to the CPU
     with pytest.raises(ValueError, match="do not split"):
         tmesh.shard_rows(m, np.zeros((3, 4), np.uint8))
+
+
+@pytest.mark.parametrize("n_blocks", [16, 13])
+def test_sharded_encode_matches_jax(rng, meshes, n_blocks):
+    """tests/test_dist.py's sharded encode (13 blocks: padded to the
+    mesh): emissions, lengths and flags equal JAX's and encode_np's."""
+    jm, tm = meshes
+    bmax = 2048
+    blocks, lens = _mk_batch(rng, n_blocks, bmax)
+    got = tmesh.sharded_encode(tm, blocks, lens, bmax)
+    want = jmesh.sharded_encode(jm, blocks, lens, bmax)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    comp, clen, ok = got
+    assert ok.all()
+    for i in range(n_blocks):
+        assert comp[i, : clen[i]].tobytes() == encode_np.encode_block_np(
+            blocks[i, : lens[i]].tobytes())
+
+
+def test_roundtrip_step_matches_jax(rng, meshes):
+    """The encode -> scan -> decode step: all seven results equal JAX's;
+    ok everywhere, no error, match, offsets the exclusive scan."""
+    jm, tm = meshes
+    bmax = 2048
+    blocks, lens = _mk_batch(rng, 16, bmax)
+    got = tmesh.roundtrip_step(tm, blocks, lens, bmax)
+    want = jmesh.roundtrip_step(jm, blocks, lens, bmax)
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+    comp, clen, ok, offsets, out, err, match = got
+    assert isinstance(comp, tmesh.ShardedRows) and len(comp.shards) == 8
+    assert offsets.device == tm.devices[0] and bool(match)
+    cl = np.asarray(clen)
+    assert np.asarray(ok).all() and not np.asarray(err).any()
+    assert (offsets.numpy() == np.cumsum(cl) - cl).all()
+
+
+def test_sharded_decode_matches_jax(rng, meshes):
+    jm, tm = meshes
+    samples = [rng.randbytes(500), b"Q" * 1500, (b"ab" * 900)[:1800]] * 4
+    samples += [b"", b"\x01\x00"]  # an empty block, a broken element
+    cmax = 2048
+    B = len(samples)
+    comp = np.zeros((B, cmax), dtype=np.uint8)
+    starts = np.zeros(B, dtype=np.int32)
+    clens = np.zeros(B, dtype=np.int32)
+    dlens = np.zeros(B, dtype=np.int32)
+    for i, s in enumerate(samples):
+        c = reference.compress(s) if i < B - 1 else b"\x04\x0cab"
+        comp[i, : len(c)] = np.frombuffer(c, dtype=np.uint8)
+        d, h = read_uvarint(c, 0)
+        starts[i], clens[i], dlens[i] = h, len(c), d
+    out, err = tmesh.sharded_decode(tm, comp, starts, clens, dlens,
+                                    out_max=2048)
+    jout, jerr = jmesh.sharded_decode(jm, comp, starts, clens, dlens,
+                                      out_max=2048)
+    np.testing.assert_array_equal(out, jout)
+    np.testing.assert_array_equal(err, jerr)
+    assert (err[:-1] == 0).all() and err[-1] != 0
+    for i, s in enumerate(samples[:-1]):
+        assert out[i, : len(s)].tobytes() == s
 
 
 def test_sharded_flat_engines_bit_exact(rng, meshes):

@@ -6,8 +6,10 @@ between engines, in the JAX package too.  No mutation may return wrong
 bytes.
 
 Counterpart of ``tests/test_framed_fuzz.py``: the port's engines are
-id, classify and the device LZ engine "seq" (the JAX hybrid engine is
-not ported).  On the CPU the kernels' plain versions run;
+id, classify and the device LZ engine "seq" against the JAX id engine,
+and the hybrid and jnp engines (SNAPPY_TPU_PALLAS=0) against the JAX
+package's own with its kernel engines off.  On the CPU the kernels'
+plain versions run;
 ``tests/test_torch_cuda.py::test_mutation_sweep_on_card`` sends mutated
 streams through the kernels on the card."""
 
@@ -27,11 +29,19 @@ ENTRIES = ("decompress_framed", "decompress_framed_to_device")
 HEADER = b"\xff\x06\x00\x00sNaPpY"
 
 
-@pytest.fixture(params=("id", "classify", "seq"))
+@pytest.fixture(params=("id", "classify", "seq", "hybrid", "jnp"))
 def engine(request, monkeypatch):
-    """The port in one runtime engine, the JAX package on its id engine
-    with the flat engine forced (off the TPU it would pick the jnp
-    engines; its own FLAT=0 engines are not the port's)."""
+    """The port in one runtime engine.  id, classify, seq: the JAX
+    package on its id engine with the flat engine forced (off the TPU it
+    would pick the jnp engines; its own FLAT=0 engines are not the
+    port's).  hybrid, jnp: both packages with their kernel engines off
+    (JAX's _pallas_cache, the port's PALLAS), HOST_PARSE on or off."""
+    if request.param in ("hybrid", "jnp"):
+        monkeypatch.setattr(jdc, "_pallas_cache", False)
+        monkeypatch.setattr(dc, "PALLAS", False)
+        for mod in (jdc, dc):
+            monkeypatch.setattr(mod, "HOST_PARSE", request.param == "hybrid")
+        return request.param
     monkeypatch.setattr(jdc, "_pallas_cache", True)
     monkeypatch.setattr(jdc, "FLAT_MODE", "id")
     if request.param == "seq":

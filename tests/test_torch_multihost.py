@@ -116,6 +116,33 @@ def test_host_decompress_parity(rng, n_hosts):
     assert bytes(out) == data
 
 
+@pytest.mark.parametrize("n_hosts", [1, 2])
+def test_host_decompress_hybrid_engine(rng, monkeypatch, n_hosts):
+    """The per-host decompress under the hybrid engine (the port's FLAT=0
+    with HOST_PARSE=1, JAX with its kernel engines off), at BATCH 2 so
+    that each host runs several batches: each host's piece equals JAX's
+    and a flipped CRC raises on the host that holds the chunk."""
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", True)
+    monkeypatch.setattr(jdc, "_pallas_cache", False)
+    monkeypatch.setattr(jdc, "HOST_PARSE", True)
+    monkeypatch.setattr(dc, "BATCH", 2)
+    data = (b"hybrid hosts " * 30000)[:300000] + rng.randbytes(70000)
+    framed = native.compress_framed(data)
+    out = bytearray()
+    for pid in range(n_hosts):
+        base, blob, total, _stats = mh.host_decompress_framed(
+            framed, pid, n_hosts, device="cpu")
+        assert (base, blob, total) == jmh.host_decompress_framed(
+            framed, pid, n_hosts)[:3]
+        out += blob
+    assert bytes(out) == data
+    bad = bytearray(framed)
+    bad[14] ^= 1  # the first chunk's CRC: host 0's
+    with pytest.raises(ChecksumError):
+        mh.host_decompress_framed(bytes(bad), 0, n_hosts, device="cpu")
+
+
 @pytest.mark.parametrize("chunk_size", [65536, 20000])
 def test_two_host_parity_flat_engines(rng, monkeypatch, chunk_size):
     """Per-host compress and decompress ranges stay bit-identical to the

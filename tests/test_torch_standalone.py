@@ -31,9 +31,11 @@ MODULES = [
     "api", "checkpoint", "cli.main", "device", "dist", "dist.mesh",
     "dist.multihost", "errors", "native",
     "runtime.device_codec", "runtime.stream",
-    "kernels._build", "kernels.crc32c", "kernels.decode_flat",
+    "kernels._build", "kernels.common_par", "kernels.crc32c",
+    "kernels.decode_flat", "kernels.decode_par", "kernels.decode_pretagged",
     "kernels.decode_seq", "kernels.decode_wavegroup", "kernels.encode_flat",
-    "kernels.encode_np", "kernels.encode_seq", "kernels.match",
+    "kernels.encode_np", "kernels.encode_par", "kernels.encode_seq",
+    "kernels.match",
     "spec", "spec.crc32c", "spec.format", "spec.framing", "spec.reference",
     "bench.corpus", "bench.kernel_cost", "bench.seq_profile",
     "utils.hostmem", "utils.log",
@@ -145,3 +147,32 @@ def test_errors_match_the_jax_package():
 def test_corpus_matches_the_jax_package():
     assert make_corpus(8 << 20, seed=20260816) == \
         jmake_corpus(8 << 20, seed=20260816)
+
+
+# the head note the port's copy of the native source carries, and the
+# package name its path lines and imports use
+_HEAD_NOTE = ("// The port's copy of snappy_tpu/native/src/snappy_native.cpp: "
+              "a fix to one\n// copy is made in both.\n")
+
+
+def _as_original(text: str) -> str:
+    """A port copy's text as the JAX package's original would read."""
+    return text.replace(_HEAD_NOTE, "").replace("snappy_tpu_torch",
+                                                "snappy_tpu")
+
+
+@pytest.mark.parametrize("rel", [
+    "native/src/snappy_native.cpp", "spec/__init__.py", "spec/crc32c.py",
+    "spec/format.py", "spec/framing.py", "spec/reference.py"])
+def test_copies_equal_their_originals(rel):
+    """The port's copies of the native codec (the hybrid engine's
+    ``sn_parse_tags`` included) and of ``spec/`` equal the JAX package's
+    files apart from the head note and the package name, so that a fix
+    made to one copy and not the other fails here."""
+    with open(os.path.join(PKG, rel)) as f:
+        port = f.read()
+    with open(os.path.join(REPO, "snappy_tpu", rel)) as f:
+        original = f.read()
+    if rel.endswith(".cpp"):
+        assert port.startswith(port.split("\n")[0] + "\n" + _HEAD_NOTE)
+    assert _as_original(port) == original
