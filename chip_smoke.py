@@ -1646,21 +1646,25 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     """Phase 18: the hybrid decode engine, the jnp engines and the mesh
     forms that run them, on make_corpus(seed).  (a) decode_pretagged
     against its plain version on one runtime-shaped batch (the first 64
-    compressed chunks, the parser's records, the bucket width), timed;
-    (b) the hybrid engine (FLAT=0, HOST_PARSE=1) over ``hybrid_mib`` MiB
-    beside the host's native.decompress_framed, with the card's busy
+    compressed chunks, the parser's records, the bucket width), timed,
+    with the profiler's count of its kernel records, and on the hand-made
+    record sets of ``decode_pretagged.edge_cases``; (b) the hybrid engine
+    (FLAT=0, HOST_PARSE=1) over ``hybrid_mib`` MiB beside the host's
+    native.decompress_framed, with the card's busy
     share of one call and a flipped payload byte and a broken element;
     (c) the jnp engines (PALLAS=0) over ``jnp_mib`` MiB: decode with
     HOST_PARSE=0, compress_framed with RATIO_GUARD, the first 64 chunks'
     emission against encode_np, and one 64-row batch of decode_blocks and
-    encode_blocks timed; (d) sharded_encode, sharded_decode and
-    roundtrip_step on make_mesh() and on two shards of the card, the dry
+    encode_blocks timed beside its bound; (d) sharded_encode,
+    sharded_decode and roundtrip_step on make_mesh() and on two shards
+    of the card, the dry
     run's 16 blocks and 64 corpus chunks.  Returns (rates, counts, the
     kernel's time row, its max_abs_err)."""
     import snappy_tpu_torch as st
     from snappy_tpu_torch import native
     from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
-                                                    device_ms, kernel_bytes)
+                                                    device_ms, kernel_bytes,
+                                                    profiled)
     from snappy_tpu_torch.dist import mesh as dm
     from snappy_tpu_torch.errors import ChecksumError, CorruptError
     from snappy_tpu_torch.kernels import decode_par as dp
@@ -1697,18 +1701,36 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     k2 = time_ms(lambda: kp.decode_blocks_pretagged(*args), 200)
     p2 = time_ms(lambda: kp.decode_blocks_pretagged_plain(*args), 3)
     dev_ms = device_ms([lambda: kp.decode_blocks_pretagged(*args)], 50)
+    recs = profiled(lambda: kp.decode_blocks_pretagged(*args), 50,
+                    "pretagged")
     nbytes = kernel_bytes("decode_pretagged", args)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"ms": min(k1, k2), "device_ms": dev_ms, "plain_ms": min(p1, p2),
-           "bound_ms": bound, "rows": len(first)}
+    # the card time is the mean of the kernel's own profiler records:
+    # device_ms divides the device time it saw by the launches, and reads
+    # low when the profiler drops records
+    row = {"ms": min(k1, k2), "device_ms": recs["kernel_ms_mean"],
+           "plain_ms": min(p1, p2), "bound_ms": bound, "rows": len(first)}
     log(card, f"decode_pretagged (main) at [{len(first)} rows, "
               f"{args[0].shape[1]} B payload rows, {args[1].shape[1]} "
               f"records a row, {int(args[2].sum())} records]: max_abs_err "
               f"{err} against the plain version; kernel {k1:.4f}/{k2:.4f} ms "
-              f"a call, {dev_ms} ms on the card (profiler), plain "
+              f"a call, {recs['kernel_ms_mean']} ms on the card (the mean "
+              f"of {recs['kernel_records']} kernel records of "
+              f"{recs['launches']} launches; device_ms {dev_ms} ms), plain "
               f"{p1:.4f}/{p2:.4f} ms; bound {bound:.4f} ms ({nbytes} B at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s)")
     del kern, plain, args
+    # the hand-made record sets: offset-1 runs, chains, sources across
+    # group and tile boundaries, a long literal, no records, dst_len and
+    # out_max short, a 99,999-byte row, a payload too wide to stage
+    for name, (c_np, r_np, nt_np, dl_np, om) in kp.edge_cases().items():
+        eargs = [torch.from_numpy(a).to(dev)
+                 for a in (c_np, r_np, nt_np, dl_np)]
+        ekern = kp.decode_blocks_pretagged(*eargs, out_max=om)
+        eplain = kp.decode_blocks_pretagged_plain(*eargs, out_max=om)
+        assert torch.equal(ekern, eplain), f"decode_pretagged {name}"
+    log(card, f"decode_pretagged: the hand-made record sets "
+              f"{sorted(kp.edge_cases())} bit-exact to the plain version")
 
     # (b) the hybrid engine
     dc.FLAT, dc.HOST_PARSE = False, True
@@ -1797,15 +1819,19 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     assert not derr.any() and torch.equal(dec, blk_d), "decode_par != input"
     enc_ms = time_ms(lambda: ep.encode_blocks(blk_d, lens_d), 5)
     dec_ms = time_ms(lambda: dp.decode_blocks(*dargs), 5)
+    enc_bound = (kernel_bytes("encode_blocks", (blk_d, lens_d))
+                 / HBM_BYTES_PER_S * 1e3)
+    dec_bound = kernel_bytes("decode_blocks", dargs) / HBM_BYTES_PER_S * 1e3
     log(card, f"jnp: {n} B, decompress_framed (HOST_PARSE=0) "
               f"{rates['jnp.decompress_framed']:.3f} GB/s, compress_framed "
               f"{rates['jnp.compress_framed']:.3f} GB/s ({len(fr)} B, "
               f"replaced rows {dict(dc.ENCODE_REPLACED)}: ok=False "
               f"'not_ok', RATIO_GUARD 'ratio_guard'); the first 64 chunks' "
               f"emission equals encode_np; one 64-row batch: encode_blocks "
-              f"{enc_ms:.3f} ms ({64 * 65536 / enc_ms / 1e6:.3f} GB/s), "
-              f"decode_blocks {dec_ms:.3f} ms "
-              f"({int(lens_d.sum()) / dec_ms / 1e6:.3f} GB/s)")
+              f"{enc_ms:.3f} ms ({64 * 65536 / enc_ms / 1e6:.3f} GB/s; "
+              f"bound {enc_bound:.4f} ms), decode_blocks {dec_ms:.3f} ms "
+              f"({int(lens_d.sum()) / dec_ms / 1e6:.3f} GB/s; bound "
+              f"{dec_bound:.4f} ms)")
     rates["jnp.encode_blocks.64"] = 64 * 65536 / enc_ms / 1e6
     rates["jnp.decode_blocks.64"] = int(lens_d.sum()) / dec_ms / 1e6
     del comp, dec, dargs

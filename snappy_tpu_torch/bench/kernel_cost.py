@@ -4,6 +4,7 @@ that ``chip_smoke.py`` and the profilers of this folder share.
 - ``kernel_bytes``: the bytes a kernel's function must move for one
   launch's arguments, so its bound is ``kernel_bytes / HBM_BYTES_PER_S``;
 - ``device_ms``: the card's own time of a call (``torch.profiler``);
+- ``profiled``: the profiler's kernel records of a call, counted;
 - ``replay``: CUDA-event and host-clock time of launches run back to back.
 
 Imports torch and the port's kernel modules only inside the functions,
@@ -70,9 +71,14 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     its pieces copy, and host-parsed records (``decode_pretagged``) the
     payload bytes their literals read plus 16 bytes a record; outputs
     count whole rows, which the functions
-    define (zeros after the data).  ``out_max`` is the output row's
-    bytes (the flat kernel's ``dst_max``), ``out_rows`` the flat
-    kernel's compose panel."""
+    define (zeros after the data).  ``decode_blocks`` and
+    ``encode_blocks`` are the jnp engines' batches (``decode_par``,
+    ``encode_par``: torch ops, no kernel of their own): a decode reads
+    each row's element stream and writes its rows and error codes, an
+    encode reads each block and writes its element row
+    (``encode_par.derived_sizes``' ``emax`` wide), length and flag.
+    ``out_max`` is the output row's bytes (the flat kernel's
+    ``dst_max``), ``out_rows`` the flat kernel's compose panel."""
     import torch
 
     from snappy_tpu_torch.kernels import decode_flat as kf
@@ -112,6 +118,17 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
         lit = torch.where(valid & (recs[..., 0] == 0), recs[..., 1], 0)
         return int(lit.sum()) + 16 * int(n_tags.sum()) \
             + _nbytes(n_tags) + _nbytes(dst_len) + nb * out_max
+    if name == "decode_blocks":
+        comp, start, comp_len, dst_len = args
+        cmax = comp.shape[1]
+        used = comp_len.clamp(0, cmax) - start.clamp(0, cmax)
+        return int(used.clamp(min=0).sum()) + 12 * nb + nb * (out_max + 4)
+    if name == "encode_blocks":
+        from snappy_tpu_torch.kernels import encode_par as ep
+
+        block, n = args
+        emax = ep.derived_sizes(block.shape[1])[2]
+        return int(n.sum()) + 4 * nb + nb * (emax + 4 + 1)
     if name == "match_cands":
         words, npos = args
         return _nbytes(words) + _nbytes(npos) + nb * km._check(*args) * 4
@@ -144,6 +161,33 @@ def device_ms(fns, reps: int = 1, tries: int = 3) -> float | None:
             return (sum(e.time_range.elapsed_us() for e in evs)
                     / (reps * len(fns)) / 1e3)
     return None
+
+
+def profiled(fn, reps: int, key: str) -> dict:
+    """The profiler's device records over ``reps`` calls of ``fn`` (after
+    one warm-up call): how many kernel records name ``key`` (one a launch
+    when none was lost), their mean milliseconds, and every device
+    interval's milliseconds a call (what ``device_ms`` reports)."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    mine = [e.time_range.elapsed_us() for e in evs if key in e.name]
+    return {"launches": reps, "kernel_records": len(mine),
+            "kernel_ms_mean": (statistics.fmean(mine) / 1e3 if mine
+                               else None),
+            "device_ms_per_call": (sum(e.time_range.elapsed_us()
+                                       for e in evs) / reps / 1e3
+                                   if evs else None)}
 
 
 def replay(launches, reps: int = 3) -> list:

@@ -18,6 +18,7 @@ from snappy_tpu.kernels import match_np
 from snappy_tpu_torch.kernels import crc32c as kc
 from snappy_tpu_torch.spec.format import put_uvarint, read_uvarint
 from snappy_tpu_torch.kernels import decode_flat as kf
+from snappy_tpu_torch.kernels import decode_pretagged as kp
 from snappy_tpu_torch.kernels import decode_seq as kds
 from snappy_tpu_torch.kernels import decode_wavegroup as kw
 from snappy_tpu_torch.kernels import encode_flat as ke
@@ -880,6 +881,48 @@ def test_pretagged_kernel_matches_plain(cuda_device, out_max):
     for i, p in enumerate(payloads):
         want = native.decompress(p)[:out_max]
         assert got[i, : len(want)].cpu().numpy().tobytes() == want
+
+
+@pytest.mark.parametrize("name", sorted(kp.edge_cases()))
+def test_pretagged_kernel_hand_made_records(cuda_device, name):
+    """The record executor on each hand-made record set (offset-1 runs,
+    chains, sources across group and tile boundaries, a 5,000-byte
+    literal, no records, dst_len short, out_max short, a 99,999-byte row,
+    a payload too wide to stage) against its plain version on the card and
+    the schedule's CPU model."""
+    comp, recs, nt, dl, out_max = kp.edge_cases()[name]
+    args = [torch.from_numpy(a).to(cuda_device) for a in (comp, recs, nt, dl)]
+    before = kp.launches
+    got = kp.decode_blocks_pretagged(*args, out_max=out_max)
+    torch.cuda.synchronize()
+    assert kp.launches == before + 1
+    assert torch.equal(got, kp.decode_blocks_pretagged_plain(
+        *args, out_max=out_max))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        kp.execute_records_model(comp, recs, nt, dl, out_max)[0])
+
+
+@pytest.mark.parametrize("out_max", [65536, 99_999])
+def test_pretagged_kernel_unaligned_rows(cuda_device, out_max):
+    """Records 4 bytes off a 16-byte boundary and payload rows at an odd
+    pitch take the kernel's plain loads instead of its bulk copies."""
+    cases = kp.edge_cases()
+    comp, recs, nt, dl, _ = cases["straddle"]
+    flat = torch.zeros(recs.size + 1, dtype=torch.int32, device=cuda_device)
+    recs_d = flat[1:].view(recs.shape)
+    recs_d.copy_(torch.from_numpy(recs))
+    assert recs_d.data_ptr() % 16 == 4
+    wide = torch.zeros(1, comp.shape[1] + 3, dtype=torch.uint8,
+                       device=cuda_device)
+    comp_d = wide[:, 1 : 1 + comp.shape[1]]
+    comp_d.copy_(torch.from_numpy(comp))
+    args = (comp_d, recs_d, torch.from_numpy(nt).to(cuda_device),
+            torch.from_numpy(dl).to(cuda_device))
+    got = kp.decode_blocks_pretagged(*args, out_max=out_max)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kp.decode_blocks_pretagged_plain(
+        *args, out_max=out_max))
 
 
 def test_hybrid_engine_on_card(cuda_device, monkeypatch):

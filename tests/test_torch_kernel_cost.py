@@ -1,0 +1,67 @@
+"""``snappy_tpu_torch.bench.kernel_cost.kernel_bytes``, the bytes behind
+each bound that ``chip_smoke.py`` and the profilers print: for the jnp
+engines' batches (``decode_par.decode_blocks``, ``encode_par.
+encode_blocks``) and the record executor, the bytes of the inputs the
+function reads plus the bytes of the outputs it returns, on small seeded
+batches run on the CPU.  Tolerance: 0 (byte counts)."""
+
+import numpy as np
+import pytest
+import torch
+
+from snappy_tpu_torch.bench.kernel_cost import kernel_bytes
+from snappy_tpu_torch.kernels import decode_par as dp
+from snappy_tpu_torch.kernels import decode_pretagged as kp
+from snappy_tpu_torch.kernels import encode_par as ep
+
+
+def _blocks(seed: int, nb: int, bmax: int):
+    rng = np.random.default_rng(seed)
+    words = [rng.bytes(int(rng.integers(2, 9))) for _ in range(40)]
+    blocks = np.zeros((nb, bmax), np.uint8)
+    lens = rng.integers(1, bmax + 1, nb).astype(np.int32)
+    for i, n in enumerate(lens):
+        text = b" ".join(words[j] for j in rng.integers(0, 40, bmax))[:n]
+        blocks[i, :n] = np.frombuffer(text, np.uint8)
+    return torch.from_numpy(blocks), torch.from_numpy(lens)
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+@pytest.mark.parametrize("nb,bmax", [(3, 1024), (5, 4096)])
+def test_encode_blocks_bytes(nb, bmax):
+    """The blocks' bytes and lengths read, the element rows, lengths and
+    flags written (``encode_par.encode_blocks``' outputs)."""
+    blocks, lens = _blocks(nb, nb, bmax)
+    outs = ep.encode_blocks(blocks, lens, bmax)
+    assert kernel_bytes("encode_blocks", (blocks, lens)) == (
+        int(lens.sum()) + _nbytes(lens) + _nbytes(*outs))
+
+
+@pytest.mark.parametrize("out_max", [1024, 4096])
+def test_decode_blocks_bytes(out_max):
+    """Each row's element stream (from its start to its length) and the
+    three int32 words a row read, the rows and error codes written."""
+    blocks, lens = _blocks(7, 4, 1024)
+    comp, clen, ok = ep.encode_blocks(blocks, lens, 1024)
+    assert bool(ok.all())
+    start = torch.zeros(4, dtype=torch.int32)
+    args = (comp, start, clen, lens)
+    outs = dp.decode_blocks(*args, out_max=out_max)
+    assert torch.equal(outs[0][:, :1024], blocks) or out_max < 1024
+    assert kernel_bytes("decode_blocks", args, out_max) == (
+        int((clen - start).sum()) + 3 * _nbytes(start) + _nbytes(*outs))
+
+
+def test_decode_pretagged_bytes():
+    """16 bytes a record, the payload bytes the literals read, the two
+    int32 words a row read, the rows written."""
+    comp, recs, nt, dl, out_max = kp.edge_cases()["straddle"]
+    args = tuple(torch.from_numpy(a) for a in (comp, recs, nt, dl))
+    live = recs[0, : nt[0]]
+    lit = int(live[live[:, 0] == 0, 1].sum())
+    out = kp.decode_blocks_pretagged(*args, out_max=out_max)
+    assert kernel_bytes("decode_pretagged", args, out_max) == (
+        16 * int(nt[0]) + lit + _nbytes(args[2], args[3]) + _nbytes(out))

@@ -3,11 +3,14 @@ decode_pretagged``) against the JAX package's ``decode_blocks_pretagged``
 on records from the port's ``native.parse_tags``, at the three payload
 row widths the runtime uses (16,640 / 33,280 / 66,560 bytes), with
 run-length chains and overlapping copies.  On the CPU the wrapper runs
-its plain version; the kernel's record-in-order execution is held here
-through ``decode_seq.execute_records`` (the writer warp's model, which
-executes records the way ``csrc/pretagged.cu`` does) and on the card by
-``tests/test_torch_cuda.py``.  Counterpart of ``tests/test_pretagged.py``.
-Tolerance: 0 (bytes)."""
+its plain version; the kernel's schedule (literals first, copies in
+groups of 32 run in rounds once their producers are done) is held here
+through
+``decode_pretagged.execute_records_model``, on corpus chunks and on the
+hand-made record sets of ``decode_pretagged.edge_cases``, against the
+plain version, JAX and ``decode_seq.execute_records`` (the records in
+order); on the card by ``tests/test_torch_cuda.py``.  Counterpart of
+``tests/test_pretagged.py``.  Tolerance: 0 (bytes)."""
 
 import numpy as np
 import pytest
@@ -49,14 +52,23 @@ def stage(streams, cmax: int, t_cap: int = 2048):
     return comp, recs, ntags, dlens
 
 
-def _model(comp, recs, ntags, out_max):
-    """The kernel's execution on the host: each row's records in order."""
+def _in_order(comp, recs, ntags, dlens, out_max):
+    """Each row's records executed one after another (the writer warp of
+    csrc/seq_decode.cu), zeros from min(dst_len, out_max)."""
     out = np.zeros((comp.shape[0], out_max), np.uint8)
     for b in range(comp.shape[0]):
         rec = [(int(d), int(ln), int(a), 0 if kind == 0 else 1)
                for kind, ln, a, d in recs[b, : ntags[b]]]
         execute_records(rec, comp[b].tobytes(), out[b])
+        out[b, max(0, min(int(dlens[b]), out_max)):] = 0
     return out
+
+
+def _model(comp, recs, ntags, out_max, dlens=None):
+    """The kernel's schedule on the host (execute_records_model)."""
+    if dlens is None:
+        dlens = np.full(comp.shape[0], out_max, np.int32)
+    return kp.execute_records_model(comp, recs, ntags, dlens, out_max)[0]
 
 
 def _samples(nprng, cmax: int):
@@ -83,7 +95,8 @@ def test_plain_matches_jax(nprng, cmax):
         out_max=OUT_MAX)
     assert got.dtype == torch.uint8 and got.shape == (len(data), OUT_MAX)
     np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(_model(comp, recs, ntags, OUT_MAX), want)
+    np.testing.assert_array_equal(_model(comp, recs, ntags, OUT_MAX, dlens),
+                                  want)
     for i, d in enumerate(data):
         assert got[i, : len(d)].numpy().tobytes() == d
         assert not got[i, len(d):].any()
@@ -146,3 +159,84 @@ def test_wrapper_checks_its_arguments():
         with pytest.raises(ValueError):
             kp.decode_blocks_pretagged(*bad, out_max=16)
     assert not kp.decode_blocks_pretagged(comp, recs, n, n, out_max=16).any()
+
+
+EDGE = kp.edge_cases()
+
+
+@pytest.mark.parametrize("name", sorted(EDGE))
+def test_model_on_hand_made_records(name):
+    """The kernel's schedule (execute_records_model) byte for byte against
+    the plain version, JAX and the records in order on each hand-made set;
+    each group of copies takes at least one round and at most one a copy,
+    and a chain of copies that each read the copy before takes one a
+    copy."""
+    comp, recs, nt, dl, out_max = EDGE[name]
+    got, rounds = kp.execute_records_model(comp, recs, nt, dl, out_max)
+    want = np.asarray(jdec(comp, recs, nt, dl, out_max=out_max))
+    plain = kp.decode_blocks_pretagged(
+        *(torch.from_numpy(a) for a in (comp, recs, nt, dl)),
+        out_max=out_max).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(plain, want)
+    np.testing.assert_array_equal(_in_order(comp, recs, nt, dl, out_max),
+                                  want)
+    lim = min(int(dl[0]), out_max)
+    assert got.shape == (1, out_max) and not got[0, lim:].any()
+    # the copies of each tile, as the kernel groups them
+    live = recs[0, : nt[0]]
+    n_copies = [int(((live[b : b + kp.TILE, 0] != 0)
+                     & (live[b : b + kp.TILE, 3] < lim)).sum())
+                for b in range(0, int(nt[0]), kp.TILE)]
+    sizes = [min(32, n - g) for n in n_copies for g in range(0, n, 32)]
+    assert len(rounds[0]) == len(sizes)
+    assert all(1 <= r <= s for r, s in zip(rounds[0], sizes))
+    if name in ("offset1_run", "chain", "far_payload"):
+        assert rounds[0].tolist() == sizes
+
+
+def test_group_waits():
+    """A lane waits on the lanes below it whose outputs meet its sources,
+    never on itself or a later lane."""
+    d = np.array([0, 4, 8, 12, 100, 104])
+    n = np.array([4, 4, 4, 4, 4, 4])
+    a = np.array([0, 4, 6, 12, 99, 50])
+    # lane 1 reads [0, 4) (lane 0); lane 2 reads [2, 6) (lanes 0, 1); lane
+    # 3 reads [0, 4) (lane 0); lane 4 reads [1, 5) (lanes 0, 1); lane 5
+    # reads [54, 58) (none); lane 0 writes zeros (none)
+    assert kp.group_waits(d, n, a).tolist() == [0, 1, 3, 1, 3, 0]
+    # a source inside the lane's own output is out of contract: capped
+    assert kp.group_waits([0, 4], [4, 8], [0, 1]).tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("profile", ["dickens", "xml", "samba", "osdb",
+                                     "mozilla"])
+def test_model_on_corpus_chunks(profile):
+    """The schedule on the parser's records of corpus chunks (make_corpus,
+    seeded, 4 MiB: up to 4 compressed chunks of one profile, staged as the
+    hybrid engine stages them) against the plain version, JAX and the
+    decoded bytes; text needs several rounds a group, never more than one
+    a copy."""
+    from snappy_tpu_torch.bench.corpus import make_corpus
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    data = dict(make_corpus(4 << 20, seed=20260816))[profile]
+    fr = native.compress_framed(data)
+    chunks, _ = dc._scan_frames(fr)
+    comp_chunks = [ch for ch in chunks if ch[0] == 0][:4]
+    assert comp_chunks, profile
+    args = kp.stage_records([fr[ch[1] : ch[1] + ch[2]] for ch in comp_chunks],
+                            [ch[5] for ch in comp_chunks],
+                            [ch[4] for ch in comp_chunks], device="cpu")
+    got, rounds = kp.execute_records_model(*args, out_max=OUT_MAX)
+    want = np.asarray(jdec(*(a.numpy() for a in args), out_max=OUT_MAX))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        kp.decode_blocks_pretagged(*args, out_max=OUT_MAX).numpy(), want)
+    for i, ch in enumerate(comp_chunks):
+        assert got[i, : ch[4]].tobytes() == native.decompress(
+            fr[ch[1] : ch[1] + ch[2]])
+    allr = np.concatenate(rounds)
+    assert allr.min() >= 1 and allr.max() <= 32
+    if profile == "dickens":
+        assert allr.mean() > 2

@@ -37,7 +37,8 @@ MODULES = [
     "kernels.encode_np", "kernels.encode_par", "kernels.encode_seq",
     "kernels.match",
     "spec", "spec.crc32c", "spec.format", "spec.framing", "spec.reference",
-    "bench.corpus", "bench.kernel_cost", "bench.seq_profile",
+    "bench.corpus", "bench.kernel_cost", "bench.pretagged_profile",
+    "bench.seq_profile",
     "utils.hostmem", "utils.log",
     "utils.progress",
 ]
