@@ -29,15 +29,22 @@ counterpart; and drives the hybrid decode engine, the portable (jnp)
 engines and the mesh forms that run them (phase 18: the record executor
 against its plain version, the hybrid engine over 256 MiB, the jnp
 engines over 256 MiB, sharded_encode / sharded_decode / roundtrip_step
-on the local cards and on two shards of the card).
+on the local cards and on two shards of the card); and drives the port
+without its native library (phase 19, in a child interpreter whose
+``native.available()`` is False and whose native functions, pure-Python
+CRC and reference encoder raise: the eight codec entry points over
+64 MiB framed and 4 MiB raw, the streams over 8 MiB and phase 15's
+GPT-2 medium checkpoint, each stream against the reference that
+``encode_np``'s emission gives, beside the host native codec).
 Every check raises on failure (nothing is caught), so any failure exits
 non-zero; without a GPU it exits non-zero before printing any result.
 
 The last two lines are one JSON object per line: the kernel table
 (each kernel's launches over the counted runs, max_abs_err, ms (CUDA
-events around back-to-back wrapper calls), device_ms (the card's own
-time, torch.profiler) and plain_ms at its main-path shape of ``rows``
-rows, bound_ms = its bytes over 3.35 TB/s, library_ms null), then
+events around back-to-back wrapper calls), device_ms (the mean of the
+kernel's own torch.profiler records, device_records [records,
+launches]) and plain_ms at its main-path shape of ``rows`` rows,
+bound_ms = its bytes over 3.35 TB/s, library_ms null), then
 {"ok": true, "device": {...}}.
 """
 
@@ -82,6 +89,11 @@ KERNELS = {
         "replaces": "snappy_tpu/kernels/decode_pretagged.py:56",
     },
 }
+# a substring of each kernel's name in the profiler's records
+PROFILER_KEYS = {"crc32c_rows": "crc32c_rows", "flat_exec": "flat_exec",
+                 "seq_decode": "seq_decode", "seq_encode": "seq_encode",
+                 "wavegroup": "wavegroup", "match_cands": "match_kernel",
+                 "decode_pretagged": "pretagged"}
 SEQ_ROWS = 64  # rows of the seq, wave and match checks and timings before
                # their engines launched at the card's resident rows
 
@@ -908,13 +920,15 @@ def seq_launches(dev, data: bytes) -> dict:
         return call
 
     dc.FLAT, dc.HOST_PARSE = False, False
-    dc.decode_blocks_seq = recorder("seq_decode")
+    # the payload-row decoders are looked up in _ROW_DECODERS
+    row_decoder = dc._ROW_DECODERS["seq"]
+    dc._ROW_DECODERS["seq"] = (recorder("seq_decode"), row_decoder[1])
     dc.encode_blocks_seq = recorder("seq_encode")
     try:
         fr = st.compress_framed(data, device=dev)
         st.decompress_framed_to_device(fr, device=dev)
     finally:
-        dc.decode_blocks_seq = real["seq_decode"]
+        dc._ROW_DECODERS["seq"] = row_decoder
         dc.encode_blocks_seq = real["seq_encode"]
         dc.FLAT, dc.HOST_PARSE = True, True
     out = {}
@@ -946,15 +960,16 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
     SEQ_ROWS rows.
     Each kernel's time two ways: ``ms``, CUDA events around back-to-back
     calls of its wrapper (the host's time between launches included);
-    ``device_ms``, the card's own time from torch.profiler
-    (``bench.kernel_cost.device_ms``).  Its bound: its bytes
+    ``device_ms``, the card's own time: the mean of the kernel's own
+    torch.profiler records (``bench.kernel_cost.profiled``), their count
+    beside the launches in ``records``.  Its bound: its bytes
     (``bench.kernel_cost.kernel_bytes``) over the card's memory rate; the
     integer and byte work per byte is far under the card's operation
     rates, so bytes bound all six.  Returns {name or name.label: ms,
-    device_ms, plain_ms, bound_ms, rows}, the plain name at the main
-    path's shape."""
+    device_ms, records, plain_ms, bound_ms, rows}, the plain name at the
+    main path's shape."""
     from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
-                                                    device_ms, kernel_bytes)
+                                                    kernel_bytes, profiled)
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
     from snappy_tpu_torch.kernels import decode_seq as kds
@@ -1032,16 +1047,19 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
             k2 = time_ms(kern, k_iters)
             plain_ms = plain_it
             plain_txt = f"plain {plain_ms:.1f} ms (phases 5-6, one call)"
-        dev_ms = device_ms([kern], min(k_iters, 50))
+        recs = profiled(kern, min(k_iters, 50), PROFILER_KEYS[name])
+        dev_ms = recs["kernel_ms_mean"]
+        records = [recs["kernel_records"], recs["launches"]]
         nbytes = kernel_bytes(name, args, kw_args.get("dst_max", 65536),
                               kw_args.get("out_rows", 520))
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         out[name if shape == "main" else f"{name}.{shape}"] = {
-            "ms": min(k1, k2), "device_ms": dev_ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "rows": nrows}
-        dev_txt = ("no device time recorded by the profiler"
-                   if dev_ms is None else f"{dev_ms:.4f} ms on the card "
-                                          f"(profiler)")
+            "ms": min(k1, k2), "device_ms": dev_ms, "records": records,
+            "plain_ms": plain_ms, "bound_ms": bound, "rows": nrows}
+        dev_txt = ("no kernel record from the profiler" if dev_ms is None
+                   else f"{dev_ms:.4f} ms on the card (the mean of "
+                        f"{records[0]} profiler records of {records[1]} "
+                        f"launches)")
         log(card, f"{name} ({shape}) at [{nrows} rows]: kernel "
                   f"{k1:.4f}/{k2:.4f} ms a call, {dev_txt}, "
                   f"{plain_txt}; bound {bound:.4f} ms ({nbytes} B "
@@ -1517,19 +1535,26 @@ def dist_phase(card, dev, mib: int, seed: int):
         assert fr2 == ref, f"{name}: from-device stream != native"
         if label == "mesh1":
             # the card's share of a loader call, and its CRC launch alone
-            busy = kernel_cost.device_ms([
-                lambda: dm.sharded_decompress_framed_to_device(mesh, ref)])
+            # (the profiler's records counted: it drops some now and then)
+            busy = kernel_cost.profiled(
+                lambda: dm.sharded_decompress_framed_to_device(mesh, ref), 1,
+                PROFILER_KEYS["crc32c_rows"])
             lens_p = np.zeros(rows.shape[0], np.int32)
             lens_p[:b] = dlens
             crc_args = (rows.shards[0], torch.from_numpy(lens_p).to(dev))
-            crc_ms = kernel_cost.device_ms([lambda: crc32c_chunks(*crc_args)])
+            crc = kernel_cost.profiled(lambda: crc32c_chunks(*crc_args), 20,
+                                       PROFILER_KEYS["crc32c_rows"])
             bound = (kernel_cost.kernel_bytes("crc32c_rows", crc_args)
                      / kernel_cost.HBM_BYTES_PER_S * 1e3)
             log(card, f"{name}: the card's time in one loader call "
-                      f"{busy} ms (torch.profiler: the CRC launch and the "
-                      f"copies) of {n / rates[f'{name}.decompress_framed_to_device'] / 1e6:.1f} "
+                      f"{busy['device_ms_per_call']} ms (torch.profiler: "
+                      f"the CRC launch and the copies; {busy['kernel_records']}"
+                      f" of {mesh.size} CRC records) of "
+                      f"{n / rates[f'{name}.decompress_framed_to_device'] / 1e6:.1f} "
                       f"ms; its CRC launch over {rows.shape[0]} rows "
-                      f"{crc_ms} ms on the card, bound {bound:.4f} ms")
+                      f"{crc['kernel_ms_mean']} ms on the card (the mean of "
+                      f"{crc['kernel_records']} records of 20 launches), "
+                      f"bound {bound:.4f} ms")
         del rows, fr2
         expect_raise(ChecksumError,
                      lambda: dm.sharded_decompress_framed_to_device(mesh, bad),
@@ -1663,8 +1688,7 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     import snappy_tpu_torch as st
     from snappy_tpu_torch import native
     from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
-                                                    device_ms, kernel_bytes,
-                                                    profiled)
+                                                    kernel_bytes, profiled)
     from snappy_tpu_torch.dist import mesh as dm
     from snappy_tpu_torch.errors import ChecksumError, CorruptError
     from snappy_tpu_torch.kernels import decode_par as dp
@@ -1700,15 +1724,12 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     k1 = time_ms(lambda: kp.decode_blocks_pretagged(*args), 200)
     k2 = time_ms(lambda: kp.decode_blocks_pretagged(*args), 200)
     p2 = time_ms(lambda: kp.decode_blocks_pretagged_plain(*args), 3)
-    dev_ms = device_ms([lambda: kp.decode_blocks_pretagged(*args)], 50)
     recs = profiled(lambda: kp.decode_blocks_pretagged(*args), 50,
-                    "pretagged")
+                    PROFILER_KEYS["decode_pretagged"])
     nbytes = kernel_bytes("decode_pretagged", args)
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    # the card time is the mean of the kernel's own profiler records:
-    # device_ms divides the device time it saw by the launches, and reads
-    # low when the profiler drops records
     row = {"ms": min(k1, k2), "device_ms": recs["kernel_ms_mean"],
+           "records": [recs["kernel_records"], recs["launches"]],
            "plain_ms": min(p1, p2), "bound_ms": bound, "rows": len(first)}
     log(card, f"decode_pretagged (main) at [{len(first)} rows, "
               f"{args[0].shape[1]} B payload rows, {args[1].shape[1]} "
@@ -1716,7 +1737,7 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
               f"{err} against the plain version; kernel {k1:.4f}/{k2:.4f} ms "
               f"a call, {recs['kernel_ms_mean']} ms on the card (the mean "
               f"of {recs['kernel_records']} kernel records of "
-              f"{recs['launches']} launches; device_ms {dev_ms} ms), plain "
+              f"{recs['launches']} launches), plain "
               f"{p1:.4f}/{p2:.4f} ms; bound {bound:.4f} ms ({nbytes} B at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s)")
     del kern, plain, args
@@ -1751,8 +1772,8 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
             bytearray(data), dtype=torch.uint8).to(dev)), \
             "hybrid decompress_framed_to_device != input"
         del arr
-        busy = device_ms([lambda: st.decompress_framed_to_device(
-            ref, device=dev)], tries=2)
+        busy = profiled(lambda: st.decompress_framed_to_device(
+            ref, device=dev), 1, PROFILER_KEYS["decode_pretagged"])
         for name in ("hybrid.decompress_framed",
                      "hybrid.decompress_framed_to_device"):
             for k in ("decode_pretagged", "crc32c_rows"):
@@ -1768,10 +1789,14 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
                   f"{rates['hybrid.decompress_framed_to_device']:.3f} GB/s "
                   f"(host native.decompress_framed "
                   f"{rates['hybrid.host native.decompress_framed']:.3f} "
-                  f"GB/s); the card busy {busy} ms (torch.profiler: "
-                  f"kernels and copies) of a {wall_ms:.1f} ms to-device call"
-                  + ("" if busy is None else
-                     f" = {busy / wall_ms * 100:.1f}%")
+                  f"GB/s); the card busy {busy['device_ms_per_call']} ms "
+                  f"(torch.profiler: kernels and copies; "
+                  f"{busy['kernel_records']} of "
+                  f"{counts['hybrid.decompress_framed_to_device']['decode_pretagged']}"
+                  f" record-executor records) of a {wall_ms:.1f} ms "
+                  f"to-device call"
+                  + ("" if busy["device_ms_per_call"] is None else
+                     f" = {busy['device_ms_per_call'] / wall_ms * 100:.1f}%")
                   + "; a flipped payload byte raised ChecksumError, a "
                     "broken element CorruptError")
     finally:
@@ -1882,6 +1907,279 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     return rates, counts, row, err
 
 
+def _forbid(module, name: str, calls: list) -> None:
+    """Replace ``module.name`` by a function that records its call in
+    ``calls`` and raises."""
+    def raiser(*args, **kwargs):
+        calls.append(name)
+        raise RuntimeError(f"{name} called with the native library off")
+
+    setattr(module, name, raiser)
+
+
+def no_native_child(tmp: str, raw_mib: int, stream_mib: int, layers: int,
+                    seed: int) -> None:
+    """Phase 19's child, run in an interpreter of its own (it patches
+    modules): the port without its native library.  ``native.available()``
+    returns False, and every public function of snappy_tpu_torch.native,
+    the pure-Python CRC and the reference encoder raise and are counted
+    (the runtime looks them up when it runs).  The eight codec entry
+    points over ``tmp``/corpus.bin (the raw ones over its first
+    ``raw_mib`` MiB), FramedWriter / FramedReader over ``stream_mib`` MiB
+    and a ``layers``-layer GPT-2 medium checkpoint, each call timed with
+    every launch counter set to 0 just before and read just after.  Its
+    streams go to files in ``tmp``; one JSON report line to stdout."""
+    import importlib
+    import io
+    import os
+
+    from snappy_tpu_torch import native
+
+    calls = {"native": [], "pure_python": []}
+    for name in dir(native):
+        fn = getattr(native, name)
+        if (not name.startswith("_") and callable(fn)
+                and getattr(fn, "__module__", None) == native.__name__):
+            _forbid(native, name, calls["native"])
+    native.available = lambda: False
+
+    from snappy_tpu_torch import FramedReader, FramedWriter, checkpoint
+    from snappy_tpu_torch.errors import ChecksumError
+    from snappy_tpu_torch.runtime import device_codec as dc
+    from snappy_tpu_torch.spec import reference
+
+    # the module, not the function of that name the package exports (the
+    # CRC kernel's constants keep their own name for a fixed segment's CRC)
+    spec_crc = importlib.import_module("snappy_tpu_torch.spec.crc32c")
+    _forbid(spec_crc, "crc32c", calls["pure_python"])
+    _forbid(reference, "encode_block", calls["pure_python"])
+    mods = _counters()
+    dev = torch.device("cuda:0")
+    report = {"device": str(dev), "calls": {}}
+
+    def run(name, nbytes, fn):
+        for m in mods.values():
+            m.launches = 0
+        for k in dc.ENCODE_REPLACED:
+            dc.ENCODE_REPLACED[k] = 0
+        res, secs = timed(fn)
+        report["calls"][name] = {
+            "bytes": nbytes, "s": secs,
+            "launches": {k: m.launches for k, m in mods.items()},
+            "replaced": dict(dc.ENCODE_REPLACED)}
+        return res
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    def write_file(name, blob):
+        with open(path(name), "wb") as f:
+            f.write(blob)
+
+    with open(path("corpus.bin"), "rb") as f:
+        data = f.read()
+    with open(path("flipped.sz"), "rb") as f:
+        flipped = f.read()
+    n = len(data)
+    data_t = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    raw_data = data[: raw_mib << 20]
+    s_data = data[: stream_mib << 20]
+    # warm-up, uncounted: each entry point once at 1 MiB
+    w = data[: 1 << 20]
+    dc.decompress_framed_to_device(dc.compress_framed(w))
+    dc.decompress_framed(dc.compress_framed_from_device(data_t[: 1 << 20]))
+    dc.decompress_to_device(dc.compress_from_device(data_t[: 1 << 20]))
+    dc.decompress(dc.compress(w))
+
+    fr = run("compress_framed", n, lambda: dc.compress_framed(data))
+    write_file("compress_framed.sz", fr)
+    assert run("decompress_framed", n,
+               lambda: dc.decompress_framed(fr)) == data, "decompress_framed"
+    arr = run("decompress_framed_to_device", n,
+              lambda: dc.decompress_framed_to_device(fr))
+    assert arr.device == dev and torch.equal(arr, data_t), "to-device"
+    fr2 = run("compress_framed_from_device", n,
+              lambda: dc.compress_framed_from_device(arr))
+    assert fr2 == fr, "compress_framed_from_device != compress_framed"
+    del arr, fr2
+    nr = len(raw_data)
+    raw = run("compress", nr, lambda: dc.compress(raw_data))
+    write_file("compress.snappy", raw)
+    assert run("decompress", nr, lambda: dc.decompress(raw)) == raw_data
+    arr = run("decompress_to_device", nr, lambda: dc.decompress_to_device(raw))
+    assert arr.device == dev and torch.equal(arr, data_t[:nr]), \
+        "raw to-device"
+    assert run("compress_from_device", nr,
+               lambda: dc.compress_from_device(arr)) == raw, "raw from-device"
+
+    def write():
+        sink = io.BytesIO()
+        with FramedWriter(sink, backend="torch") as wr:
+            for i in range(0, len(s_data), 1 << 20):
+                wr.write(s_data[i : i + (1 << 20)])
+        return sink.getvalue()
+
+    def read():
+        r = FramedReader(io.BytesIO(written), backend="torch")
+        out = bytearray()
+        while piece := r.read(1 << 20):
+            out += piece
+        return bytes(out)
+
+    written = run("FramedWriter", len(s_data), write)
+    write_file("writer.sz", written)
+    assert run("FramedReader", len(s_data), read) == s_data, "FramedReader"
+    for fn in (dc.decompress_framed, dc.decompress_framed_to_device):
+        try:
+            fn(flipped)
+        except ChecksumError:
+            continue
+        raise AssertionError(f"{fn.__name__}: flipped payload byte not caught")
+    state = gpt2_state(layers, dev, seed)
+    size = sum(t.numel() * t.element_size() for t in state.values())
+    blob = run("save_pytree", size, lambda: checkpoint.save_pytree(state))
+    back = run("load_pytree", size, lambda: checkpoint.load_pytree(blob))
+    assert all(torch.equal(back[k], v) for k, v in state.items()), \
+        "checkpoint"
+    write_file("checkpoint.bin", blob)
+    report["host_fallbacks"] = dict(dc.HOST_FALLBACKS)
+    report["native_calls"] = len(calls["native"])
+    report["pure_python_calls"] = len(calls["pure_python"])
+    print(json.dumps(report), flush=True)
+
+
+def _np_element(chunk: bytes) -> bytes:
+    """``encode_np``'s element of one chunk (a process pool's task)."""
+    from snappy_tpu_torch.kernels.encode_np import encode_block_np
+
+    return encode_block_np(chunk)
+
+
+def no_native_phase(card, dev, mib: int, layers: int, seed: int):
+    """Phase 19: the port without its native library, in a child
+    interpreter (``no_native_child``) where ``native.available()`` is
+    False and every public native function, the pure-Python CRC and the
+    reference encoder raise and count: the jnp engines with every CRC on
+    the CRC kernel and the ratio guard's reference element on the
+    sequential encoder.  Over ``mib`` MiB of make_corpus(seed):
+    compress_framed, decompress_framed, decompress_framed_to_device,
+    compress_framed_from_device; over its first 4 MiB (one
+    decode_block_par row covers the stream) compress, decompress,
+    decompress_to_device, compress_from_device; FramedWriter /
+    FramedReader over 8 MiB; save_pytree / load_pytree of a
+    ``layers``-layer GPT-2 medium state.  Here, with the library: the
+    reference streams (``encode_np``'s emission, which the JAX package's
+    jnp encoder and guard give, in a process pool while the child runs,
+    framed with native CRCs), the host native codec's rates on the same
+    bytes, a flipped payload byte, and the child's checkpoint loaded
+    back.  Returns (rates, counts)."""
+    import multiprocessing
+    import os
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from snappy_tpu_torch import checkpoint, native
+    from snappy_tpu_torch.runtime import device_codec as dc
+    from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK, put_uvarint
+
+    t0 = time.perf_counter()
+    data = corpus_bytes(mib << 20, seed)
+    n = len(data)
+    cs = 65536
+    log(card, f"phase 19: {n} B of make_corpus(seed={seed}) made in "
+              f"{time.perf_counter() - t0:.2f} s")
+    raw_mib, stream_mib = 4, 8
+    rates, counts = {}, {}
+    host = {}
+    ref_native, secs = timed(lambda: native.compress_framed(data, threads=4))
+    host["compress_framed"] = n / secs / 1e9
+    _, secs = timed(lambda: native.decompress_framed(ref_native, threads=4))
+    host["decompress_framed"] = n / secs / 1e9
+    raw_data = data[: raw_mib << 20]
+    raw_native, secs = timed(lambda: native.compress(raw_data))
+    host["compress"] = len(raw_data) / secs / 1e9
+    _, secs = timed(lambda: native.decompress(raw_native))
+    host["decompress"] = len(raw_data) / secs / 1e9
+    root = os.path.dirname(os.path.abspath(__file__))
+    workers = max(1, (os.cpu_count() or 2) - 2)
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        with open(os.path.join(tmp, "corpus.bin"), "wb") as f:
+            f.write(data)
+        with open(os.path.join(tmp, "flipped.sz"), "wb") as f:
+            f.write(flip_payload_byte(
+                native.compress_framed(data[: stream_mib << 20])))
+        t0 = time.perf_counter()
+        elems = pool.map(_np_element,
+                         [data[i : i + cs] for i in range(0, n, cs)],
+                         chunksize=16)
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke.no_native_child("
+             "sys.argv[1], *map(int, sys.argv[2:]))",
+             tmp, str(raw_mib), str(stream_mib), str(layers), str(seed)],
+            cwd=root, capture_output=True, text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        assert proc.returncode == 0, \
+            f"phase 19 child failed:\n{proc.stderr[-4000:]}"
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+        elems = list(elems)
+        ref_s = time.perf_counter() - t0
+        records = [dc._framed_record(
+            len(e := data[i * cs : (i + 1) * cs]), el, native.crc32c(e), e)
+            for i, el in enumerate(elems)]
+
+        def read(name):
+            with open(os.path.join(tmp, name), "rb") as f:
+                return f.read()
+
+        assert read("compress_framed.sz") == \
+            bytes(STREAM_ID_CHUNK) + b"".join(records), \
+            "native-off compress_framed != the reference"
+        n_raw = -(-len(raw_data) // cs)
+        assert read("compress.snappy") == \
+            put_uvarint(len(raw_data)) + b"".join(elems[:n_raw]), \
+            "native-off compress != the reference"
+        n_st = -(-(stream_mib << 20) // cs)
+        assert read("writer.sz") == \
+            bytes(STREAM_ID_CHUNK) + b"".join(records[:n_st]), \
+            "native-off FramedWriter != the reference"
+        state = gpt2_state(layers, dev, seed)
+        back = checkpoint.load_pytree(read("checkpoint.bin"))
+        assert all(torch.equal(back[k], v) for k, v in state.items()), \
+            "native-off checkpoint != its state, loaded with the library"
+        del state, back
+    assert report["device"] == str(dev), report
+    assert report["native_calls"] == 0, report
+    assert report["pure_python_calls"] == 0, report
+    total = {k: sum(c["launches"][k] for c in report["calls"].values())
+             for k in KERNELS}
+    assert total["crc32c_rows"] > 0 and total["seq_encode"] > 0, total
+    for name, c in report["calls"].items():
+        rate = c["bytes"] / c["s"] / 1e9
+        rates[f"no_native.{name}"] = rate
+        counts[f"no_native.{name}"] = c["launches"]
+        beside = {"FramedWriter": "compress_framed",
+                  "FramedReader": "decompress_framed"}.get(name) or next(
+            (k for k in host if name.startswith(k)), None)
+        log(card, f"native off {name}: {c['bytes']} B in {c['s']:.4f} s = "
+                  f"{rate:.4f} GB/s"
+                  + (f" (host native.{beside} {host[beside]:.4f} GB/s)"
+                     if beside else "")
+                  + f", kernel launches {c['launches']}, rows replaced "
+                    f"{c['replaced']}")
+    rates.update({f"no_native.host native.{k}": v for k, v in host.items()})
+    log(card, f"native off: launches over the child's calls {total}; "
+              f"host fallbacks {report['host_fallbacks']}; native calls "
+              f"{report['native_calls']}, pure-Python CRC and reference "
+              f"encoder calls {report['pure_python_calls']}; the streams "
+              f"equal encode_np's reference ({len(elems)} chunks in a "
+              f"{workers}-process pool, {ref_s:.2f} s beside the child's "
+              f"{child_s:.2f} s), the child's checkpoint loads with the "
+              f"library, a flipped payload byte raised ChecksumError")
+    return rates, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--id-mib", type=int, default=256)
@@ -1891,7 +2189,8 @@ def main() -> int:
     ap.add_argument("--devmatch-mib", type=int, default=256)
     ap.add_argument("--ckpt-layers", type=int,
                     default=GPT2_MEDIUM["n_layer"],
-                    help="layers of the phase-15 GPT-2 medium state")
+                    help="layers of the GPT-2 medium state of phases 15 "
+                         "and 19")
     ap.add_argument("--stream-mib", type=int, default=256)
     ap.add_argument("--dist-mib", type=int, default=1024,
                     help="MiB of the phase-17 loader corpus")
@@ -1899,6 +2198,9 @@ def main() -> int:
                     help="MiB of the phase-18 hybrid engine run")
     ap.add_argument("--jnp-mib", type=int, default=256,
                     help="MiB of the phase-18 jnp engines run")
+    ap.add_argument("--no-native-mib", type=int, default=64,
+                    help="MiB of the phase-19 framed calls without the "
+                         "native library")
     ap.add_argument("--seed", type=int, default=20260816)
     args = ap.parse_args()
 
@@ -1969,11 +2271,14 @@ def main() -> int:
     di_rates, di_counts = dist_phase(card, dev, args.dist_mib, args.seed)
     po_rates, po_counts, times["decode_pretagged"], pre_err = portable_phase(
         card, dev, args.hybrid_mib, args.jnp_mib, args.seed)
-    rates.update(ck_rates, **st_rates, **di_rates, **po_rates)
-    counts.update(ck_counts, **st_counts, **di_counts, **po_counts)
+    nn_rates, nn_counts = no_native_phase(
+        card, dev, args.no_native_mib, args.ckpt_layers, args.seed)
+    rates.update(ck_rates, **st_rates, **di_rates, **po_rates, **nn_rates)
+    counts.update(ck_counts, **st_counts, **di_counts, **po_counts,
+                  **nn_counts)
     launches = {name: sum(c[name] for c in counts.values())
                 for name in KERNELS}
-    log(card, f"launches over every counted run (phases 9-13, 15-18): "
+    log(card, f"launches over every counted run (phases 9-13, 15-19): "
               f"{launches}")
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
@@ -1988,6 +2293,7 @@ def main() -> int:
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "device_ms": times[name]["device_ms"],
+         "device_records": times[name]["records"],
          "rows": times[name]["rows"]}
         for name in KERNELS]}
     log(card, "rates GB/s: " + json.dumps(rates))

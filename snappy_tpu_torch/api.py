@@ -149,8 +149,7 @@ def _copy_into(blob: bytes, out) -> int:
 
 def _host_backend() -> str:
     """The backend of the into-entries without the native library:
-    ``SNAPPY_TPU_BACKEND``, else "auto", as in the JAX package ("torch"
-    needs the native library for its staging)."""
+    ``SNAPPY_TPU_BACKEND``, else "auto", as in the JAX package."""
     return os.environ.get("SNAPPY_TPU_BACKEND") or "auto"
 
 

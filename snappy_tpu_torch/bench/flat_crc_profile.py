@@ -19,8 +19,10 @@ rates.  Each group of launches is then replayed back to back
 (``kernel_cost.replay``):
 
 - ``call_ms``: CUDA events around the replay, over the launches;
-- ``device_ms``: the card's kernel time per launch, from ``torch.profiler``
-  over one more replay (``kernel_cost.device_ms``);
+- ``device_ms``: the card's kernel time per launch, the mean of the
+  kernel's own ``torch.profiler`` records over one more replay
+  (``kernel_cost.profiled``), with ``device_records`` [records,
+  launches]: the profiler drops records now and then;
 - ``host_us``: the host clock around the replay's loop, before the
   closing sync, per launch: what the wrapper costs the calling thread.
 
@@ -171,7 +173,7 @@ def main() -> int:
         print("flat_crc_profile: no CUDA device visible to torch",
               file=sys.stderr)
         return 2
-    from kernel_cost import HBM_BYTES_PER_S, device_ms, kernel_bytes, replay
+    from kernel_cost import HBM_BYTES_PER_S, kernel_bytes, profiled, replay
     from seq_profile import _corpus
 
     import snappy_tpu_torch
@@ -197,13 +199,16 @@ def main() -> int:
                                   640 if enc else k.get("out_rows", 520))
                      for _, a, k in launches)
         call_s, host_s = min(replay(fns))
-        dev_ms = device_ms(fns)
         n = len(launches)
+        recs = profiled(lambda: [fn() for fn in fns], 1,
+                        "flat_exec" if "flat" in name else "crc32c_rows")
+        dev_ms = recs["kernel_ms_mean"]
         print(json.dumps({
             "replay": name, "launches": n,
             "rows": sorted({a[0].shape[0] for _, a, _ in launches}),
             "GBps_of_corpus": len(data) / call_s / 1e9,
             "call_ms": call_s * 1e3 / n, "device_ms": dev_ms,
+            "device_records": [recs["kernel_records"], n],
             "host_us": host_s * 1e6 / n,
             "bound_ms": nbytes / n / HBM_BYTES_PER_S * 1e3,
             "bound_by": (None if dev_ms is None else "host"

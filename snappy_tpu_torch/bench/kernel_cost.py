@@ -3,8 +3,10 @@ that ``chip_smoke.py`` and the profilers of this folder share.
 
 - ``kernel_bytes``: the bytes a kernel's function must move for one
   launch's arguments, so its bound is ``kernel_bytes / HBM_BYTES_PER_S``;
-- ``device_ms``: the card's own time of a call (``torch.profiler``);
-- ``profiled``: the profiler's kernel records of a call, counted;
+- ``profiled``: the profiler's kernel records of a call, counted, and
+  their mean: a card time that stays right when the profiler drops
+  records, as it does now and then (the sum of every device interval
+  over the launches, its ``device_ms_per_call``, then reads low);
 - ``replay``: CUDA-event and host-clock time of launches run back to back.
 
 Imports torch and the port's kernel modules only inside the functions,
@@ -135,39 +137,13 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     raise KeyError(name)
 
 
-def device_ms(fns, reps: int = 1, tries: int = 3) -> float | None:
-    """Mean card milliseconds of a call of ``fns`` (a list of callables,
-    each run ``reps`` times after one warm-up call of each): the sum of
-    the device intervals (kernels, copies, fills) torch.profiler records.
-    Unlike CUDA events around the calls it leaves out the host's time
-    between launches.  None when ``tries`` profiled runs all recorded
-    no device interval: the profiler's device tracing (CUPTI) is not
-    always given to a process, and then no device time was measured."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for fn in fns:
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                for fn in fns:
-                    fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if evs:
-            return (sum(e.time_range.elapsed_us() for e in evs)
-                    / (reps * len(fns)) / 1e3)
-    return None
-
-
-def profiled(fn, reps: int, key: str) -> dict:
+def profiled(fn, reps: int, key: str, tries: int = 3) -> dict:
     """The profiler's device records over ``reps`` calls of ``fn`` (after
     one warm-up call): how many kernel records name ``key`` (one a launch
     when none was lost), their mean milliseconds, and every device
-    interval's milliseconds a call (what ``device_ms`` reports)."""
+    interval's milliseconds a call.  A profiled run that recorded no
+    record of ``key`` (device tracing is not always given to a process)
+    is run again, up to ``tries`` runs."""
     import statistics
 
     import torch
@@ -176,12 +152,15 @@ def profiled(fn, reps: int, key: str) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    mine = [e.time_range.elapsed_us() for e in evs if key in e.name]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        mine = [e.time_range.elapsed_us() for e in evs if key in e.name]
+        if mine:
+            break
     return {"launches": reps, "kernel_records": len(mine),
             "kernel_ms_mean": (statistics.fmean(mine) / 1e3 if mine
                                else None),

@@ -13,7 +13,8 @@ prints one JSON object per line:
 - ``card``: the card's ``nvidia-smi`` name and power limit, the root;
 - ``batch``: ``chip_smoke.py`` phase 18's batch (the first 64 compressed
   chunks, ``stage_records``): the kernel against its plain version
-  (max_abs_err), its card time a launch (``device_ms``, torch.profiler),
+  (max_abs_err), its card time a launch (``device_ms``, the mean of its
+  torch.profiler records; ``device_records`` [records, launches]),
   its call time (``call_ms``, CUDA events around 200 back-to-back
   calls), the host's time a call (``host_us``), its bound
   (``kernel_cost.kernel_bytes`` over 3.35 TB/s) and, where the package
@@ -126,7 +127,7 @@ def batch(dev, fr: bytes) -> tuple:
     """Phase 18's batch: (its staged arguments, the batch line)."""
     import torch
 
-    from kernel_cost import HBM_BYTES_PER_S, device_ms, kernel_bytes
+    from kernel_cost import HBM_BYTES_PER_S, kernel_bytes, profiled
     from snappy_tpu_torch.kernels import decode_pretagged as kp
     from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -140,11 +141,14 @@ def batch(dev, fr: bytes) -> tuple:
     err = int((got.int() - plain.int()).abs().max())
     call_ms, host_us = _events_ms(lambda: kp.decode_blocks_pretagged(*args),
                                   200)
-    dev_ms = device_ms([lambda: kp.decode_blocks_pretagged(*args)], 50)
+    recs = profiled(lambda: kp.decode_blocks_pretagged(*args), 50,
+                    "pretagged")
     nbytes = kernel_bytes("decode_pretagged", args)
     line = {"batch": len(first), "payload_width": args[0].shape[1],
             "record_cap": args[1].shape[1], "records": int(args[2].sum()),
-            "max_abs_err": err, "device_ms": dev_ms, "call_ms": call_ms,
+            "max_abs_err": err, "device_ms": recs["kernel_ms_mean"],
+            "device_records": [recs["kernel_records"], recs["launches"]],
+            "call_ms": call_ms,
             "host_us": host_us, "bytes": nbytes,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     model = getattr(kp, "execute_records_model", None)
@@ -202,7 +206,7 @@ def replay_call(dev, fr: bytes) -> None:
     """Record the record executor's launches of one hybrid
     decompress_framed_to_device and replay them."""
     import snappy_tpu_torch as st
-    from kernel_cost import HBM_BYTES_PER_S, device_ms, kernel_bytes, replay
+    from kernel_cost import HBM_BYTES_PER_S, kernel_bytes, profiled, replay
     from snappy_tpu_torch.kernels import decode_pretagged as kp
     from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -225,12 +229,14 @@ def replay_call(dev, fr: bytes) -> None:
     nbytes = sum(kernel_bytes("decode_pretagged", a,
                               k.get("out_max", 65536)) for a, k in launches)
     call_s, host_s = min(replay(fns))
-    dev_ms = device_ms(fns)
     n = len(launches)
+    recs = profiled(lambda: [fn() for fn in fns], 1, "pretagged")
+    dev_ms = recs["kernel_ms_mean"]
     bound_ms = nbytes / n / HBM_BYTES_PER_S * 1e3
     print(json.dumps({
         "replay": "hybrid.decompress_framed_to_device", "launches": n,
         "call_ms": call_s * 1e3 / n, "device_ms": dev_ms,
+        "device_records": [recs["kernel_records"], n],
         "host_us": host_s * 1e6 / n, "bound_ms": bound_ms,
         "kernel_ms_per_call": None if dev_ms is None else dev_ms * n,
         "lost_ms_per_call": (None if dev_ms is None

@@ -22,6 +22,11 @@ run each device's part; here the layout is explicit:
   - ``roundtrip_step`` has the one cross-shard result: the exclusive
     scan of the compressed lengths and the all-shards match flag, for
     which the per-shard lengths and flags go to the mesh's first device.
+  - Without the native library the loader's id stager decodes each chunk
+    on the host (``device_codec.stage_id_rows``), the from-device encode
+    forms take each shard's sequential encoder (``encode_blocks_seq``)
+    for the elements, and the flat and id stagers raise, as the JAX
+    package's need its library too.
 """
 
 from __future__ import annotations
@@ -51,11 +56,14 @@ from snappy_tpu_torch.kernels.encode_flat import (
     TAG_ROWS,
     encode_blocks_flat,
 )
+from snappy_tpu_torch.kernels.encode_seq import encode_blocks_seq
 from snappy_tpu_torch.runtime.device_codec import (
     _ID_ROWS,
+    _fetch_rows,
     _framed_record,
     _native,
     _scan_frames,
+    _stored,
     stage_id_rows,
 )
 from snappy_tpu_torch.spec.format import (
@@ -541,26 +549,58 @@ def sharded_decompress_framed_to_device(
     return ShardedRows(mesh, [o for o, _ in res]), dlens[:B], min(B, b)
 
 
+def _reference_records(rows: ShardedRows, encs, lens_p: np.ndarray,
+                       crc: np.ndarray, b: int) -> list[bytes]:
+    """The framed records of rows[:b] from each shard's sequential-encoder
+    launch ``encs`` (the reference element of every chunk): per shard,
+    its element lengths, then its elements cut to its longest and the
+    rows the framed format stores uncompressed come to the host."""
+    per = rows.shape[0] // rows.mesh.size
+    clens = _host([c for _, c, _ in encs], b)
+    recs = []
+    for k, (s, (comp, _, _)) in enumerate(zip(rows.shards, encs)):
+        lo, hi = k * per, min((k + 1) * per, b)
+        if lo >= hi:
+            break
+        ln, cl = lens_p[lo:hi], clens[lo:hi]
+        elems = _fetch_rows(comp, list(range(hi - lo)), cl)
+        raw = _fetch_rows(s, [j for j in range(hi - lo)
+                              if _stored(int(ln[j]), int(cl[j]))], ln)
+        recs += [_framed_record(int(ln[j]), elems[j].tobytes(),
+                                int(crc[lo + j]), raw.get(j))
+                 for j in range(hi - lo)]
+    return recs
+
+
 def _encode_records(mesh: Mesh, rows, lens) -> tuple[bytes, np.ndarray]:
     """The framed records (no stream identifier) of rows[:len(lens)],
     joined, and each record's length.  Each chunk's CRC-32C is computed
     on its shard's device; the rows then come to the host for the
-    native matcher."""
+    native matcher.  Without the native library each shard's device
+    encodes its chunks with the sequential encoder instead (the
+    reference element, which the JAX package's per-chunk oracle emits)
+    and only the elements and the stored chunks' bytes come back."""
     rows = shard_rows(mesh, rows)
     B, width = rows.shape
     b = len(lens)
     if rows.dtype != torch.uint8 or width != CHUNK or b > B:
         raise ValueError(f"rows must be uint8 [B, {CHUNK}] with B >= "
                          f"{b}, got {rows.dtype} {tuple(rows.shape)}")
-    nat = _native()
     lens_p = np.zeros(B, np.int32)
     lens_p[:b] = lens
     per = B // mesh.size
-    crcs = [crc32c_chunks(s, torch.from_numpy(lens_p[k * per:(k + 1) * per])
-                          .to(s.device))
-            for k, s in enumerate(rows.shards)]
+    lens_d = [torch.from_numpy(lens_p[k * per:(k + 1) * per]).to(s.device)
+              for k, s in enumerate(rows.shards)]
+    crcs = [crc32c_chunks(s, ln) for s, ln in zip(rows.shards, lens_d)]
+    encs = None if native.available() else [
+        encode_blocks_seq(s, ln) for s, ln in zip(rows.shards, lens_d)]
     if b == 0:
         return b"", np.zeros(0, np.int64)
+    if encs is not None:
+        recs = _reference_records(rows, encs, lens_p,
+                                  _host(crcs, b).astype(np.uint32), b)
+        return b"".join(recs), np.array([len(r) for r in recs], np.int64)
+    nat = native
     blocks = np.empty((b, CHUNK), np.uint8)
     for k, s in enumerate(rows.shards):
         lo, hi = k * per, min((k + 1) * per, b)

@@ -223,10 +223,12 @@ def _bucket(n: int, floor: int = 256) -> int:
     return b
 
 
-def decode_block_par(comp_bytes: bytes, dst_len: int, start: int = 0,
-                     device=None) -> bytes:
-    """Single-block convenience wrapper, ``decode_block_jnp``'s
-    counterpart.  Raises CorruptError as the shared error surface does."""
+def decode_block_par_to_device(comp_bytes: bytes, dst_len: int,
+                               start: int = 0, device=None) -> torch.Tensor:
+    """Single-block decode to a uint8 tensor ``[dst_len]`` on ``device``
+    (``device.resolve``): one row of the parallel decoder, its shapes
+    bucketed as ``decode_block_jnp``'s.  Raises CorruptError as the
+    shared error surface does."""
     from snappy_tpu_torch.device import resolve
 
     dev = resolve(device)
@@ -248,4 +250,12 @@ def decode_block_par(comp_bytes: bytes, dst_len: int, start: int = 0,
     code = int(err[0])
     if code != ERR_NONE:
         raise CorruptError(ERR_MESSAGES.get(code, f"error {code}"))
-    return out[0, :dst_len].cpu().numpy().tobytes()
+    return out[0, :dst_len]
+
+
+def decode_block_par(comp_bytes: bytes, dst_len: int, start: int = 0,
+                     device=None) -> bytes:
+    """Single-block convenience wrapper, ``decode_block_jnp``'s
+    counterpart: ``decode_block_par_to_device``'s bytes on the host."""
+    return decode_block_par_to_device(comp_bytes, dst_len, start,
+                                      device).cpu().numpy().tobytes()

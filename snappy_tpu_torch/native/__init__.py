@@ -84,17 +84,23 @@ def _so_is_fresh() -> bool:
 
 
 def _build() -> str | None:
+    """Build the library and record its source hash.  Processes that
+    build at once (test workers on a fresh checkout) each write their own
+    temporary files and rename them into place, so none loads or renames
+    another's half-written file."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     src_hash = _source_hash()
+    tmp_so = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        "-pthread", _SRC, "-o", _SO,
+        "-pthread", _SRC, "-o", tmp_so,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=240)
     except Exception:
         return None
-    tmp = _HASH_FILE + ".tmp"
+    os.replace(tmp_so, _SO)
+    tmp = f"{_HASH_FILE}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         f.write(src_hash + "\n")
     os.replace(tmp, _HASH_FILE)

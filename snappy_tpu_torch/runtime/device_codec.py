@@ -6,15 +6,15 @@ port's device LZ engine.  The engine is read from the JAX package's
 variables (``SNAPPY_TPU_FLAT``, ``SNAPPY_TPU_HOST_PARSE``,
 ``SNAPPY_TPU_PALLAS``, ``SNAPPY_TPU_DEVICE_CRC``):
 
-  =========================================  ==============  ==============
-  variables                                  framed decode   encode
-  =========================================  ==============  ==============
-  defaults (FLAT=1, PALLAS auto)             id / classify   id / classify
-  FLAT=0, HOST_PARSE=1                       hybrid          seq
-  FLAT=0, HOST_PARSE=0                       seq             seq
-  PALLAS=0, HOST_PARSE=1, device CRC on      hybrid          jnp
-  PALLAS=0, HOST_PARSE=0 or device CRC off   jnp             jnp
-  =========================================  ==============  ==============
+  =========================================  ==============  ==============  =============
+  variables                                  framed decode   encode          native off
+  =========================================  ==============  ==============  =============
+  defaults (FLAT=1, PALLAS auto)             id / classify   id / classify   jnp / jnp
+  FLAT=0, HOST_PARSE=1                       hybrid          seq             jnp / jnp
+  FLAT=0, HOST_PARSE=0                       seq             seq             seq / seq
+  PALLAS=0, HOST_PARSE=1, device CRC on      hybrid          jnp             jnp / jnp
+  PALLAS=0, HOST_PARSE=0 or device CRC off   jnp             jnp             jnp / jnp
+  =========================================  ==============  ==============  =============
 
 "device CRC on" is ``verify_checksums`` with ``DEVICE_CRC``.  PALLAS
 "auto" and "1" leave the port's kernel engines on; "0" turns the flat
@@ -49,19 +49,32 @@ device CRCs.  Under FLAT=0 with PALLAS on, raw decode is native too.
                 (``kernels.decode_par``) parses, checks and decodes them;
                 the parallel encoder (``kernels.encode_par``) encodes the
                 chunk rows.  A row the encoder cannot certify (ok=False)
-                takes the native encoder's element, and with
+                takes the reference element (the native encoder's,
+                which equals ``spec.reference``'s), and with
                 ``RATIO_GUARD`` so does a row longer than it.
 
 Host buffers that feed a transfer are pinned on a GPU and reused in
 rounds of ``_NSETS``; each round records a CUDA event after its
 transfers and the next use of its buffers waits on it, so staging a
 batch never rewrites memory that an earlier asynchronous copy still
-reads.  Without the native library every entry point raises.
+reads.
+
+Without the native library ("native off": ``native.available()`` false)
+the port does what the JAX package does without it, byte for byte: the
+id, classify and hybrid engines need the library, so the pick is the
+last column of the table (the seq engine needs none).  Every CRC the
+port computes is ``crc32c_chunks`` (``_crc32c_host`` for host bytes),
+the jnp encoder's reference element for ``ok=False`` rows and
+``RATIO_GUARD`` is the sequential encoder's (``encode_blocks_seq``, one
+launch a batch, on the rows already on the device), raw decode is one
+row of the parallel decoder (``decode_block_par``), the from-device
+encoders run the jnp engine on the tensor in place, and the per-chunk
+host decodes take the reference decoder (``spec.reference``).
 
 The only host decodes are the reference's per-chunk format fallbacks
 (a plan over its caps, a payload wider than ``_DECODE_CMAX``, a copy
 offset past 64 KiB); ``HOST_FALLBACKS`` counts them.  ``ENCODE_REPLACED``
-counts the jnp encoder's rows replaced by the native encoder's.
+counts the jnp encoder's rows replaced by the reference element.
 """
 
 from __future__ import annotations
@@ -114,6 +127,7 @@ from snappy_tpu_torch.kernels.decode_pretagged import (
 )
 from snappy_tpu_torch.kernels.decode_seq import ERR_MESSAGES, decode_blocks_seq
 from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
+from snappy_tpu_torch.spec import reference as _reference
 
 # Chunks per device batch; the same variable as the JAX package's.
 BATCH = int(os.environ.get("SNAPPY_TPU_BATCH", "64"))
@@ -126,8 +140,9 @@ HOST_PARSE = os.environ.get("SNAPPY_TPU_HOST_PARSE", "1") != "0"
 # The JAX package's kernel-engine gate: "auto" and "1" leave the flat and
 # seq engines on, "0" turns them off (the hybrid and jnp engines then).
 PALLAS = os.environ.get("SNAPPY_TPU_PALLAS", "auto") != "0"
-# jnp encode: replace a row's element by the native encoder's when that
-# one is shorter (one host encode per chunk).
+# jnp encode: replace a row's element by the reference element when that
+# one is shorter (one native encode per chunk, or without the native
+# library one sequential-encoder launch per batch).
 RATIO_GUARD = os.environ.get("SNAPPY_TPU_RATIO_GUARD", "1") != "0"
 # Flat engine mode: "id" (identity staging + device CRC) or "classify".
 FLAT_MODE = os.environ.get("SNAPPY_TPU_FLAT_MODE", "id")
@@ -143,7 +158,7 @@ _T_CAP = _DECODE_CMAX // 2 + 2
 
 # per-chunk host decodes, by cause
 HOST_FALLBACKS = {"plan_overflow": 0, "oversize_payload": 0, "far_offset": 0}
-# jnp encode rows that took the native encoder's element, by cause
+# jnp encode rows that took the reference element, by cause
 ENCODE_REPLACED = {"not_ok": 0, "ratio_guard": 0}
 
 
@@ -174,10 +189,20 @@ def _bucket_cmax(kmax: int) -> int:
     return next((c for c in (16640, 33280) if kmax <= c), _DECODE_CMAX)
 
 
+def _portable_engine() -> str:
+    """The engine of both directions without the native library: the
+    device LZ engine where the variables pick it (PALLAS on, FLAT=0,
+    HOST_PARSE=0), else "jnp", as in the JAX package, whose flat, id and
+    hybrid engines all need the library."""
+    return "seq" if PALLAS and not FLAT and not HOST_PARSE else "jnp"
+
+
 def _decode_engine(dev_crc: bool) -> str:
     """The framed decode engine: "id", "classify", "seq", "hybrid" or
     "jnp" (the module docstring's table); ``dev_crc``: the CRCs are
     checked on the device."""
+    if not native.available():
+        return _portable_engine()
     if not PALLAS:
         return "hybrid" if HOST_PARSE and dev_crc else "jnp"
     if FLAT:
@@ -187,6 +212,8 @@ def _decode_engine(dev_crc: bool) -> str:
 
 def _encode_engine() -> str:
     """The encode engine: "flat" (id or classify), "seq" or "jnp"."""
+    if not native.available():
+        return _portable_engine()
     if not PALLAS:
         return "jnp"
     return "flat" if FLAT else "seq"
@@ -268,6 +295,33 @@ def _chunk_lens(nb: int, cnt: int,
     return np.minimum(nb - np.arange(cnt, dtype=np.int64) * cs, cs)
 
 
+_HOST_CRC_ROWS = 512  # 64 KiB rows a launch of _crc32c_host
+
+
+def _crc32c_host(pieces, device=None) -> list[int]:
+    """CRC-32C of each host buffer of ``pieces`` (bytes, memoryviews or
+    uint8 arrays of at most 64 KiB): the native CRC, else
+    ``crc32c_chunks`` on ``device`` (the kernel on a card, its plain
+    version on the CPU), the pieces packed into 64 KiB rows."""
+    pieces = list(pieces)
+    if native.available():
+        return [native.crc32c(bytes(p)) for p in pieces]
+    device = resolve(device)
+    out = []
+    for base in range(0, len(pieces), _HOST_CRC_ROWS):
+        grp = [np.frombuffer(p, np.uint8)
+               for p in pieces[base : base + _HOST_CRC_ROWS]]
+        rows = np.zeros((len(grp), _CRC_CHUNK), np.uint8)
+        lens = np.zeros(len(grp), np.int32)
+        for i, a in enumerate(grp):
+            rows[i, : a.size] = a
+            lens[i] = a.size
+        crc = crc32c_chunks(torch.from_numpy(rows).to(device),
+                            torch.from_numpy(lens).to(device))
+        out += crc.cpu().tolist()
+    return out
+
+
 # ---------------------------------------------------------------------
 # decode
 
@@ -318,10 +372,18 @@ def _scan_frames(src: bytes):
     return chunks, total
 
 
+def _host_decompress_raw(payload: bytes) -> bytes:
+    """Host decode of one raw stream: the native decoder, else the
+    reference's."""
+    if native.available():
+        return native.decompress(payload)
+    return _reference.decompress(payload)
+
+
 def _host_decode_chunk(src_arr, ch, out, off: int) -> None:
     """Per-chunk host decode (a format fallback) into out[off:]."""
     _, p_off, p_len, _crc, dst_len, _hdr = ch
-    blob = _native().decompress(bytes(src_arr[p_off : p_off + p_len]))
+    blob = _host_decompress_raw(bytes(src_arr[p_off : p_off + p_len]))
     if len(blob) != dst_len:
         raise CorruptError("chunk preamble disagrees with decoded size")
     out[off : off + dst_len] = np.frombuffer(blob, dtype=np.uint8)
@@ -354,7 +416,6 @@ def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
     """Decode the chunk-index ``subset`` of a scanned frame index into the
     host array ``out`` at per-chunk offsets ``dst_offs``."""
     device = resolve(device)
-    _native()
     use_dev_crc = verify_checksums and DEVICE_CRC
     engine = _decode_engine(use_dev_crc)
     subset = list(subset)
@@ -391,15 +452,14 @@ def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
             host_checked.update(comp_idx)
 
     if verify_checksums:
-        nat = _native()
-        for i in subset:
-            if i not in host_checked:
-                continue  # verified on the device
-            ch = chunks[i]
-            got = mask_crc(nat.crc32c(
-                out[dst_offs[i] : dst_offs[i] + ch[4]].tobytes()))
-            if got != ch[3]:
-                raise ChecksumError(ch[3], got)
+        # the chunks not verified on the device, in stream order
+        idx = [i for i in subset if i in host_checked]
+        crcs = _crc32c_host((out[dst_offs[i] : dst_offs[i] + chunks[i][4]]
+                             for i in idx), device)
+        for i, crc in zip(idx, crcs):
+            got = mask_crc(crc)
+            if got != chunks[i][3]:
+                raise ChecksumError(chunks[i][3], got)
 
 
 def _id_sets(device):
@@ -731,8 +791,9 @@ def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
     """Id-stage one group of scanned framed chunks into staging rows:
     compressed chunks decode through the threaded native id walk in
     contiguous runs, uncompressed chunks are their payload.  Fills
-    dlens per row; raises CorruptError on an invalid payload."""
-    nat = _native()
+    dlens per row; raises CorruptError on an invalid payload.  Without
+    the native library each compressed row decodes on the host
+    (``_host_decode_chunk``), as in the JAX package."""
     comp_rows = []
     for row, ch in enumerate(grp):
         dlens[row] = ch[4]
@@ -742,6 +803,12 @@ def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
             _t, p_off, p_len, _c, _d, _h = ch
             b_u8[row, :p_len] = src_arr[p_off : p_off + p_len]
             b_u8[row, p_len:] = 0
+    if not native.available():
+        for row in comp_rows:
+            _host_decode_chunk(src_arr, grp[row], b_u8[row], 0)
+            b_u8[row, grp[row][4]:] = 0
+        return
+    nat = native
     r = 0
     while r < len(comp_rows):
         r2 = r
@@ -779,7 +846,6 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     and upload the result."""
     chunks, total = _scan_frames(data)
     device = resolve(device)
-    _native()
     uniform = total > 0 and all(
         ch[4] == _CRC_CHUNK for ch in chunks[:-1]) and all(
         ch[2] <= _DECODE_CMAX for ch in chunks if ch[0] == CHUNK_COMPRESSED)
@@ -886,9 +952,14 @@ def decompress(data: bytes, device=None) -> bytes:
     is the decode (a raw stream has no CRC for the device to check).
     Classify mode: the segmented flat engine on the device, the native
     decoder for unplannable streams.  Every other engine: the native
-    decoder, as in the JAX package."""
+    decoder, as in the JAX package.  Without the native library: one row
+    of the parallel decoder on ``device``, as the JAX package's
+    ``decode_block_jnp``."""
     dst_len, hdr = read_uvarint(data, 0)
-    nat = _native()
+    if not native.available():
+        return _dpar.decode_block_par(data, dst_len, start=hdr,
+                                      device=resolve(device))
+    nat = native
     if PALLAS and FLAT and FLAT_MODE != "id":
         got = _decompress_raw_flat(data, dst_len, hdr, resolve(device))
         if got is not None:
@@ -906,10 +977,15 @@ def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
     one preallocated device tensor.  Classify mode: the segmented flat
     engine.  Streams with a copy offset past 64 KiB (which no real
     encoder emits) or an unplannable segment decode on the host, and so
-    does every stream under the other engines, as in the JAX package."""
+    does every stream under the other engines, as in the JAX package.
+    Without the native library: one row of the parallel decoder on
+    ``device``, the result left there."""
     dst_len, hdr = read_uvarint(data, 0)
     device = resolve(device)
-    nat = _native()
+    if not native.available():
+        return _dpar.decode_block_par_to_device(data, dst_len, start=hdr,
+                                                device=device)
+    nat = native
     if not (PALLAS and FLAT):
         return _upload_bytes(nat.decompress(data), device)
     if FLAT_MODE != "id":
@@ -1047,76 +1123,175 @@ def _encode_batches(data, chunk_size: int, device):
 
 def _native_element(chunk) -> bytes:
     """The native encoder's element of one chunk (no varint header)."""
-    comp = _native().compress(bytes(chunk))
+    comp = native.compress(bytes(chunk))
     return comp[read_uvarint(comp, 0)[1] :]
 
 
-def _encode_jnp(data, chunk_size: int, device):
-    """jnp engine: yield (chunk_index, chunk_len, element_bytes) for every
-    chunk of data.  Each batch of BATCH chunk rows (``bmax`` the chunk
-    size rounded up to a power of two, at least 256) goes up through
-    pinned rows and the parallel encoder (``kernels.encode_par``) encodes
-    it; the lengths and flags come back, then the elements cut to the
-    batch's longest.  A row with ok=False, and with RATIO_GUARD a row
-    longer than the native encoder's element, takes the native element
-    (``ENCODE_REPLACED`` counts them).  Batch k+1 is staged while batch k
+def _device_rows(src: torch.Tensor, lo: int, nb: int, cnt: int, cs: int,
+                 width: int) -> torch.Tensor:
+    """The cnt cs-byte chunks of the flat device tensor ``src[lo:lo+nb]``
+    as rows [cnt, width] (width >= cs): a view where they fill whole
+    rows, else a copy, zero past each chunk's end."""
+    if nb == cnt * cs and width == cs:
+        return src[lo : lo + nb].view(cnt, cs)
+    rows = torch.zeros(cnt, width, dtype=torch.uint8, device=src.device)
+    full = nb // cs
+    if full:
+        rows[:full, :cs] = src[lo : lo + full * cs].view(full, cs)
+    if nb > full * cs:  # the stream's short last chunk
+        rows[full, : nb - full * cs] = src[lo + full * cs : lo + nb]
+    return rows
+
+
+def _fetch_rows(t: torch.Tensor, idx, lens) -> dict:
+    """Rows ``idx`` of the 2-D tensor ``t`` (on a device), row i cut to
+    its first ``lens[i]`` bytes, fetched to the host in one copy:
+    {i: uint8 array}."""
+    if not idx:
+        return {}
+    width = int(max(lens[i] for i in idx))
+    got = t[torch.tensor(idx, device=t.device), :width].cpu().numpy()
+    return {i: got[j, : lens[i]] for j, i in enumerate(idx)}
+
+
+def _reference_elements(b: dict, ok: np.ndarray, clens: np.ndarray):
+    """The reference elements a finished jnp batch ``b`` needs: (refs,
+    ref_lens), refs[i] the element of each row that takes it (ok=False,
+    or with RATIO_GUARD shorter than the row's), ref_lens[i] its length
+    for every row RATIO_GUARD compares.  The native encoder's, on the
+    host, when the library is there; else the sequential encoder's:
+    its launch's lengths (queued beside the batch under RATIO_GUARD,
+    else launched here for a batch with an ok=False row), then one fetch
+    of the rows that take their element."""
+    cnt = len(ok)
+    if native.available():
+        refs = {}
+        for i in range(cnt):
+            if RATIO_GUARD or not ok[i]:
+                refs[i] = _native_element(b["chunk"](i))
+        return refs, {i: len(r) for i, r in refs.items()}
+    ref = b["ref"]
+    if ref is None:
+        if ok.all():
+            return {}, {}
+        ref = encode_blocks_seq(b["rows"], b["lens_d"])
+        ref_lens = ref[1].cpu().numpy()
+    else:
+        ref_lens = b["hs"].np["ref_clens"][: cnt].copy()
+    take = [i for i in range(cnt) if not ok[i]
+            or (RATIO_GUARD and ref_lens[i] < clens[i])]
+    refs = {i: r.tobytes()
+            for i, r in _fetch_rows(ref[0], take, ref_lens).items()}
+    return refs, ref_lens
+
+
+def _encode_jnp(src, chunk_size: int, device, with_crc: bool = False):
+    """jnp engine: yield (chunk_index, chunk_len, element, crc, stored)
+    for the chunk_size-byte chunks of ``src``, host bytes or a flat uint8
+    tensor on ``device``.
+
+    Each batch of BATCH chunk rows (``bmax`` the chunk size rounded up to
+    a power of two, at least 256) goes up through pinned rows, or is cut
+    from the tensor in place, and the parallel encoder
+    (``kernels.encode_par``) encodes it; with ``with_crc`` the CRC kernel
+    checksums the same rows (``crc`` is else None).  The lengths and
+    flags come back, then the elements cut to the batch's longest.  A
+    row with ok=False, and with RATIO_GUARD a row longer than the
+    reference element, takes the reference element
+    (``_reference_elements``; ``ENCODE_REPLACED`` counts them).
+    ``stored`` is, for a device tensor with ``with_crc`` (a framed
+    stream), the bytes of a chunk the framed format stores uncompressed,
+    fetched once a batch; else None.  Batch k+1 is staged while batch k
     runs."""
-    data = memoryview(data)
-    n = len(data)
+    on_dev = isinstance(src, torch.Tensor)
+    n = int(src.numel()) if on_dev else len(src)
     n_chunks = -(-n // chunk_size)
     if n_chunks == 0:
         return
     bmax = 256
     while bmax < chunk_size:
         bmax *= 2
-    rows = min(BATCH, n_chunks)
-    src = np.frombuffer(data, np.uint8)
-    sets = _host_sets(device, blocks=((rows, bmax), torch.uint8),
-                      lens=((rows,), torch.int32),
-                      clens=((rows,), torch.int32), ok=((rows,), torch.bool))
+    rows_n = min(BATCH, n_chunks)
+    # without the library the guard's reference comes from the device
+    guard_on_dev = RATIO_GUARD and not native.available()
+    shapes = dict(lens=((rows_n,), torch.int32),
+                  clens=((rows_n,), torch.int32), ok=((rows_n,), torch.bool),
+                  crc=((rows_n,), torch.int64),
+                  ref_clens=((rows_n,), torch.int32))
+    if not on_dev:
+        shapes["blocks"] = ((rows_n, bmax), torch.uint8)
+        src_np = np.frombuffer(src, np.uint8)
+    sets = _host_sets(device, **shapes)
 
     def dispatch(k, base):
         cnt = min(BATCH, n_chunks - base)
+        lo = base * chunk_size
+        nb = min(n, lo + cnt * chunk_size) - lo
         hs = sets[k % _NSETS]
         hs.wait()
-        blocks = hs.np["blocks"][:cnt]
         lens = hs.np["lens"][:cnt]
-        for i in range(cnt):
-            off = (base + i) * chunk_size
-            ln = min(chunk_size, n - off)
-            blocks[i, :ln] = src[off : off + ln]
-            blocks[i, ln:] = 0
-            lens[i] = ln
-        comp, clens, ok = _epar.encode_blocks(
-            _upload(hs.t["blocks"][:cnt], device),
-            _upload(hs.t["lens"][:cnt], device), bmax=bmax)
+        lens[:] = _chunk_lens(nb, cnt, chunk_size)
+        if on_dev:
+            rows = _device_rows(src, lo, nb, cnt, chunk_size, bmax)
+        else:
+            blocks = hs.np["blocks"][:cnt]
+            for i in range(cnt):
+                off = lo + i * chunk_size
+                ln = int(lens[i])
+                blocks[i, :ln] = src_np[off : off + ln]
+                blocks[i, ln:] = 0
+            rows = _upload(hs.t["blocks"][:cnt], device)
+        lens_d = _upload(hs.t["lens"][:cnt], device)
+        comp, clens, ok = _epar.encode_blocks(rows, lens_d, bmax=bmax)
         hs.t["clens"][:cnt].copy_(clens, non_blocking=True)
         hs.t["ok"][:cnt].copy_(ok, non_blocking=True)
+        if with_crc:
+            hs.t["crc"][:cnt].copy_(crc32c_chunks(rows, lens_d),
+                                    non_blocking=True)
+        ref = None
+        if guard_on_dev:
+            ref = encode_blocks_seq(rows, lens_d)
+            hs.t["ref_clens"][:cnt].copy_(ref[1], non_blocking=True)
         hs.record()
-        return base, cnt, hs, comp
 
-    for base, cnt, hs, comp in _one_behind(range(0, n_chunks, BATCH),
-                                           dispatch):
+        def chunk(i):  # the host bytes of the batch's chunk i
+            if on_dev:
+                return rows[i, : int(hs.np["lens"][i])].cpu().numpy()
+            off = lo + i * chunk_size
+            return src[off : off + int(hs.np["lens"][i])]
+
+        return dict(base=base, cnt=cnt, hs=hs, rows=rows, lens_d=lens_d,
+                    comp=comp, ref=ref, chunk=chunk)
+
+    for b in _one_behind(range(0, n_chunks, BATCH), dispatch):
+        hs, cnt, comp = b["hs"], b["cnt"], b["comp"]
         hs.wait()
         clens = hs.np["clens"][:cnt].copy()
         ok = hs.np["ok"][:cnt].copy()
         lens = hs.np["lens"][:cnt].copy()
         kmax = min((int(clens.max()) + 511) & ~511, comp.shape[1])
         comp_h = comp[:, :kmax].cpu().numpy()
+        refs, ref_lens = _reference_elements(b, ok, clens)
+        blobs = []
         for i in range(cnt):
-            off = (base + i) * chunk_size
-            chunk = data[off : off + int(lens[i])]
             if ok[i]:
                 blob = comp_h[i, : int(clens[i])].tobytes()
-            else:  # a hash collision: the native element
+            else:  # a hash collision: the reference element
                 ENCODE_REPLACED["not_ok"] += 1
-                blob = _native_element(chunk)
-            if RATIO_GUARD:
-                ref = _native_element(chunk)
-                if len(ref) < len(blob):
-                    ENCODE_REPLACED["ratio_guard"] += 1
-                    blob = ref
-            yield base + i, int(lens[i]), blob
+                blob = refs[i]
+            if RATIO_GUARD and ref_lens[i] < len(blob):
+                ENCODE_REPLACED["ratio_guard"] += 1
+                blob = refs[i]
+            blobs.append(blob)
+        stored = {}
+        if on_dev and with_crc:
+            stored = _fetch_rows(
+                b["rows"], [i for i in range(cnt)
+                            if _stored(int(lens[i]), len(blobs[i]))], lens)
+        crc = hs.np["crc"][:cnt].copy() if with_crc else None
+        for i in range(cnt):
+            yield (b["base"] + i, int(lens[i]), blobs[i],
+                   int(crc[i]) if with_crc else None, stored.get(i))
 
 
 def _stored(chunk_len: int, clen: int) -> bool:
@@ -1174,11 +1349,7 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
         if not on_dev:
             hs.np["blocks"][:nb] = src_np[lo : lo + nb]
             return _upload(hs.t["blocks"][: cnt * cs], device).view(cnt, cs)
-        if nb == cnt * cs:
-            return src[lo : lo + nb].view(cnt, cs)
-        rows = torch.zeros(cnt * cs, dtype=torch.uint8, device=device)
-        rows[:nb] = src[lo : lo + nb]  # the stream's short last chunk
-        return rows.view(cnt, cs)
+        return _device_rows(src, lo, nb, cnt, cs, cs)
 
     def fetch(b: dict) -> None:
         if b["kmax"] is not None:
@@ -1246,7 +1417,7 @@ def compress(data: bytes, device=None) -> bytes:
         for _, _, blob in _encode_batches(data, MAX_BLOCK_SIZE, device):
             out += blob
     elif engine == "jnp":
-        for _, _, blob in _encode_jnp(data, MAX_BLOCK_SIZE, device):
+        for _, _, blob, _, _ in _encode_jnp(data, MAX_BLOCK_SIZE, device):
             out += blob
     else:
         for _, _, elem, _, _ in _encode_seq(data, MAX_BLOCK_SIZE, device,
@@ -1262,11 +1433,11 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
     engine: elements and CRCs from the device (``_encode_seq``).  jnp
     engine: elements from ``_encode_jnp`` with host CRCs, as in the JAX
     package.  Otherwise chunk elements from ``_encode_batches`` with
-    host CRCs."""
+    host CRCs.  Without the native library every CRC comes from the CRC
+    kernel, beside the jnp or seq engine's encode of the same rows."""
     if not 0 < chunk_size <= MAX_CHUNK_UNCOMPRESSED:
         raise ValueError(f"chunk_size must be in (0, 65536], got {chunk_size}")
     device = resolve(device)
-    nat = _native()
     engine = _encode_engine()
     if (engine == "flat" and FLAT_MODE == "id"
             and chunk_size == MAX_CHUNK_UNCOMPRESSED and len(data)):
@@ -1274,19 +1445,18 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
     if engine == "flat":
         chunks = ((idx, ln, blob, None) for idx, ln, blob
                   in _encode_batches(data, chunk_size, device))
-    elif engine == "jnp":
-        chunks = ((idx, ln, blob, None) for idx, ln, blob
-                  in _encode_jnp(data, chunk_size, device))
     else:
+        encode = _encode_jnp if engine == "jnp" else _encode_seq
+        with_crc = not native.available() or (engine == "seq" and DEVICE_CRC)
         chunks = ((idx, ln, elem, crc) for idx, ln, elem, crc, _
-                  in _encode_seq(data, chunk_size, device, DEVICE_CRC))
+                  in encode(data, chunk_size, device, with_crc))
     data_v = memoryview(data)
     out = bytearray(STREAM_ID_CHUNK)
     for idx, chunk_len, blob, crc in chunks:
         off = idx * chunk_size
         chunk = data_v[off : off + chunk_len]
         if crc is None:
-            crc = nat.crc32c(bytes(chunk))
+            crc = native.crc32c(bytes(chunk))
         out += _framed_record(chunk_len, blob, crc, chunk)
     return bytes(out)
 
@@ -1353,23 +1523,28 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     Device LZ engine: the tensor's chunks are encoded and CRC'd where
     they lie (``_encode_seq``); only elements and CRCs come back, plus
     the bytes of chunks stored uncompressed.  The jnp engine takes the
-    id path, as the JAX package does."""
+    id path, as the JAX package does.  Without the native library the
+    jnp engine (or the seq engine, where it is picked) encodes the
+    tensor's chunks in place and the CRC kernel checksums them: the
+    bytes of ``compress_framed(bytes(arr))``."""
     _check_uint8(arr)
     device = arr.device if device is None else resolve(device)
     arr = arr.to(device).reshape(-1)
     n = int(arr.numel())
     if n == 0:
         return bytes(STREAM_ID_CHUNK)
-    nat = _native()
     cs = MAX_CHUNK_UNCOMPRESSED
-    if _encode_engine() == "seq":
+    engine = _encode_engine()
+    if engine == "seq" or not native.available():
+        encode = _encode_seq if engine == "seq" else _encode_jnp
         out = bytearray(STREAM_ID_CHUNK)
-        for _, ln, elem, crc, stored in _encode_seq(arr, cs, device,
-                                                    DEVICE_CRC):
+        for _, ln, elem, crc, stored in encode(
+                arr, cs, device, DEVICE_CRC or not native.available()):
             if crc is None:
-                crc = nat.crc32c(stored.tobytes())
+                crc = native.crc32c(stored.tobytes())
             out += _framed_record(ln, elem, crc, stored)
         return bytes(out)
+    nat = native
     n_chunks = -(-n // cs)
     sets = _crc_sets(device, min(BATCH, n_chunks), "rows")
 
@@ -1410,17 +1585,21 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     Byte-identical to ``compress(bytes(arr))`` in id mode.  Device LZ
     engine: the tensor's 64 KiB blocks are encoded where they lie and
     only the elements come back.  The jnp engine takes the native
-    encoder, as the JAX package does."""
+    encoder, as the JAX package does; without the native library it
+    encodes the tensor's blocks in place (the bytes of
+    ``compress(bytes(arr))``)."""
     _check_uint8(arr)
-    if _encode_engine() == "seq":
+    engine = _encode_engine()
+    if engine == "seq" or not native.available():
         device = arr.device if device is None else resolve(device)
         arr = arr.to(device).reshape(-1)
+        encode = _encode_seq if engine == "seq" else _encode_jnp
         out = bytearray(put_uvarint(int(arr.numel())))
-        for _, _, elem, _, _ in _encode_seq(arr, MAX_BLOCK_SIZE, device,
-                                            with_crc=False):
+        for _, _, elem, _, _ in encode(arr, MAX_BLOCK_SIZE, device,
+                                       with_crc=False):
             out += elem
         return bytes(out)
     if device is not None:
         arr = arr.to(resolve(device))
     host = arr.reshape(-1).cpu().numpy()
-    return _native().compress(memoryview(host))
+    return native.compress(memoryview(host))

@@ -16,6 +16,10 @@ port's registry (:mod:`snappy_tpu_torch.api`), so ``backend="torch"``
           JAX package, with a host CRC; for ``backend`` None or
           "native" a multi-record fill is one native batched framed
           decode.
+
+Without the native library the reader's and the writer's own CRCs run
+on the CRC kernel of the default device, one launch a record, and the
+records decode as the "torch" backend does without it.
 """
 
 from __future__ import annotations
@@ -46,13 +50,11 @@ __all__ = ["FramedWriter", "FramedReader"]
 
 
 def _crc(data: bytes) -> int:
-    from snappy_tpu_torch import native
+    """A record's CRC-32C: the native CRC, else the CRC kernel on the
+    default device (``device_codec._crc32c_host``)."""
+    from snappy_tpu_torch.runtime.device_codec import _crc32c_host
 
-    if native.available():
-        return native.crc32c(data)
-    from snappy_tpu_torch.spec.crc32c import crc32c
-
-    return crc32c(data)
+    return _crc32c_host([data])[0]
 
 
 class FramedWriter(io.RawIOBase):

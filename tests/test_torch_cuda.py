@@ -1035,3 +1035,44 @@ def test_mesh_codec_forms_on_card(cuda_device):
                                                  else g),
                                       np.asarray(w))
     assert bool(got[6]) and not np.asarray(got[5]).any()
+
+
+def test_no_native_path_on_card(cuda_device, monkeypatch):
+    """Without the native library the framed and raw codec runs on the
+    card: every CRC on the CRC kernel, the guard's reference element on
+    the sequential encoder, no native function called; the streams are
+    ``encode_np``'s emission (the JAX package's jnp encoder and guard),
+    framed with the native CRCs computed beforehand."""
+    from snappy_tpu_torch.kernels.encode_np import encode_block_np
+    from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK
+
+    data = _corpus(19, 1 << 20)
+    chunks = [data[i : i + 65536] for i in range(0, len(data), 65536)]
+    elems = [encode_block_np(c) for c in chunks]
+    want = bytes(STREAM_ID_CHUNK) + b"".join(
+        dc._framed_record(len(c), e, native.crc32c(c), c)
+        for c, e in zip(chunks, elems))
+    want_raw = put_uvarint(len(data)) + b"".join(elems)
+    called = []
+    for name in dir(native):
+        fn = getattr(native, name)
+        if (not name.startswith("_") and callable(fn)
+                and getattr(fn, "__module__", None) == native.__name__):
+            monkeypatch.setattr(native, name,
+                                lambda *a, _n=name, **k: called.append(_n))
+    monkeypatch.setattr(native, "available", lambda: False)
+    crc0, enc0 = kc.launches, kes.launches
+    fr = dc.compress_framed(data, device=cuda_device)
+    assert fr == want
+    assert kc.launches > crc0 and kes.launches > enc0
+    assert dc.decompress_framed(fr, device=cuda_device) == data
+    arr = dc.decompress_framed_to_device(fr, device=cuda_device)
+    assert arr.device == cuda_device
+    assert dc.compress_framed_from_device(arr) == want
+    raw = dc.compress(data, device=cuda_device)
+    assert raw == want_raw
+    arr = dc.decompress_to_device(raw, device=cuda_device)
+    assert arr.device == cuda_device
+    assert arr.cpu().numpy().tobytes() == data
+    assert dc.compress_from_device(arr) == want_raw
+    assert called == []

@@ -21,7 +21,6 @@ from snappy_tpu_torch.errors import (
     BadMagicError,
     ChecksumError,
     CorruptError,
-    SnappyError,
     UnsupportedError,
 )
 from snappy_tpu.runtime import device_codec as jdc
@@ -240,9 +239,8 @@ def test_broken_element_raises_corrupt(mode):
                     lambda: getattr(jdc, dec)(framed))
 
 
-def test_hybrid_engine_not_ported(monkeypatch, nprng):
-    """FLAT=0 with HOST_PARSE=1 is the hybrid decode engine (the name
-    recalls the SnappyError it raised before the port had it): framed
+def test_hybrid_engine_decodes_like_jax(monkeypatch, nprng):
+    """FLAT=0 with HOST_PARSE=1 is the hybrid decode engine: framed
     decode, to the host and to the device, gives the JAX hybrid engine's
     bytes; encode stays on the device LZ engine (native's stream) and
     raw decode on the host."""
@@ -481,14 +479,6 @@ def test_from_device_shapes_and_types():
             fn(torch.zeros(8, dtype=torch.float32))
     with pytest.raises(ValueError):
         dc.compress_framed(data, chunk_size=0, device="cpu")
-
-
-def test_native_required(monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)
-    with pytest.raises(SnappyError):
-        dc.compress_framed(b"abc", device="cpu")
-    with pytest.raises(SnappyError):
-        dc.decompress_to_device(b"\x03abc", device="cpu")
 
 
 def test_public_api_and_device_pick(nprng):
