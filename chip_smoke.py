@@ -28,8 +28,10 @@ all-gather), each output against its single-device or single-process
 counterpart; and drives the hybrid decode engine, the portable (jnp)
 engines and the mesh forms that run them (phase 18: the record executor
 against its plain version, the hybrid engine over 256 MiB, the jnp
-engines over 256 MiB, sharded_encode / sharded_decode / roundtrip_step
-on the local cards and on two shards of the card); and drives the port
+engines over 256 MiB on the parallel decoder's and encoder's kernels,
+each held against its plain version on a 64-row batch and hostile rows,
+sharded_encode / sharded_decode / roundtrip_step on the local cards and
+on two shards of the card); and drives the port
 without its native library (phase 19, in a child interpreter whose
 ``native.available()`` is False and whose native functions, pure-Python
 CRC and reference encoder raise: the eight codec entry points over
@@ -88,12 +90,23 @@ KERNELS = {
         "source": "snappy_tpu_torch/csrc/pretagged.cu",
         "replaces": "snappy_tpu/kernels/decode_pretagged.py:56",
     },
+    "decode_par": {
+        "source": "snappy_tpu_torch/csrc/decode_par.cu",
+        "replaces": "snappy_tpu/kernels/decode_jnp.py:174",
+    },
+    "encode_par": {
+        "source": "snappy_tpu_torch/csrc/encode_par.cu",
+        "replaces": "snappy_tpu/kernels/encode_jnp.py:397",
+    },
 }
-# a substring of each kernel's name in the profiler's records
+# a substring of each kernel's name in the profiler's records (the
+# parallel encoder's two kernels: both, its card time their sum)
 PROFILER_KEYS = {"crc32c_rows": "crc32c_rows", "flat_exec": "flat_exec",
                  "seq_decode": "seq_decode", "seq_encode": "seq_encode",
                  "wavegroup": "wavegroup", "match_cands": "match_kernel",
-                 "decode_pretagged": "pretagged"}
+                 "decode_pretagged": "pretagged",
+                 "decode_par": "decode_par_kernel",
+                 "encode_par": ("encode_cands_kernel", "encode_parse_kernel")}
 SEQ_ROWS = 64  # rows of the seq, wave and match checks and timings before
                # their engines launched at the card's resident rows
 
@@ -309,15 +322,17 @@ def runtime_plan(plan, kmax: int):
 def _counters():
     from snappy_tpu_torch.kernels import crc32c as kc
     from snappy_tpu_torch.kernels import decode_flat as kf
+    from snappy_tpu_torch.kernels import decode_par as dp
     from snappy_tpu_torch.kernels import decode_pretagged as kp
     from snappy_tpu_torch.kernels import decode_seq as kds
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
+    from snappy_tpu_torch.kernels import encode_par as ep
     from snappy_tpu_torch.kernels import encode_seq as kes
     from snappy_tpu_torch.kernels import match as km
 
     return {"crc32c_rows": kc, "flat_exec": kf, "seq_decode": kds,
             "seq_encode": kes, "wavegroup": kw, "match_cands": km,
-            "decode_pretagged": kp}
+            "decode_pretagged": kp, "decode_par": dp, "encode_par": ep}
 
 
 def _counter_modules() -> dict:
@@ -1677,14 +1692,16 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
     (FLAT=0, HOST_PARSE=1) over ``hybrid_mib`` MiB beside the host's
     native.decompress_framed, with the card's busy
     share of one call and a flipped payload byte and a broken element;
-    (c) the jnp engines (PALLAS=0) over ``jnp_mib`` MiB: decode with
-    HOST_PARSE=0, compress_framed with RATIO_GUARD, the first 64 chunks'
-    emission against encode_np, and one 64-row batch of decode_blocks and
-    encode_blocks timed beside its bound; (d) sharded_encode,
-    sharded_decode and roundtrip_step on make_mesh() and on two shards
-    of the card, the dry
-    run's 16 blocks and 64 corpus chunks.  Returns (rates, counts, the
-    kernel's time row, its max_abs_err)."""
+    (c) the jnp engines (PALLAS=0) over ``jnp_mib`` MiB, on the
+    decode_par and encode_par kernels: decode with HOST_PARSE=0,
+    compress_framed with RATIO_GUARD, the first 64 chunks' emission
+    against encode_np, and the kernels against their plain versions on
+    that 64-row batch and on hostile rows, timed beside their bounds
+    (``par_kernel_checks``); (d) sharded_encode, sharded_decode and
+    roundtrip_step on make_mesh() and on two shards of the card, the dry
+    run's 16 blocks and 64 corpus chunks.  Returns (rates, counts, {the
+    three kernels, and "decode_par.wide": time row}, {the three kernels:
+    max_abs_err})."""
     import snappy_tpu_torch as st
     from snappy_tpu_torch import native
     from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
@@ -1842,23 +1859,24 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
              lens_d)
     dec, derr = dp.decode_blocks(*dargs)
     assert not derr.any() and torch.equal(dec, blk_d), "decode_par != input"
-    enc_ms = time_ms(lambda: ep.encode_blocks(blk_d, lens_d), 5)
-    dec_ms = time_ms(lambda: dp.decode_blocks(*dargs), 5)
-    enc_bound = (kernel_bytes("encode_blocks", (blk_d, lens_d))
-                 / HBM_BYTES_PER_S * 1e3)
-    dec_bound = kernel_bytes("decode_blocks", dargs) / HBM_BYTES_PER_S * 1e3
+    for name, made in (("jnp.decompress_framed", "decode_par"),
+                       ("jnp.compress_framed", "encode_par")):
+        assert counts[name][made] > 0, f"{made} never launched in {name}"
     log(card, f"jnp: {n} B, decompress_framed (HOST_PARSE=0) "
               f"{rates['jnp.decompress_framed']:.3f} GB/s, compress_framed "
               f"{rates['jnp.compress_framed']:.3f} GB/s ({len(fr)} B, "
               f"replaced rows {dict(dc.ENCODE_REPLACED)}: ok=False "
               f"'not_ok', RATIO_GUARD 'ratio_guard'); the first 64 chunks' "
-              f"emission equals encode_np; one 64-row batch: encode_blocks "
-              f"{enc_ms:.3f} ms ({64 * 65536 / enc_ms / 1e6:.3f} GB/s; "
-              f"bound {enc_bound:.4f} ms), decode_blocks {dec_ms:.3f} ms "
-              f"({int(lens_d.sum()) / dec_ms / 1e6:.3f} GB/s; bound "
-              f"{dec_bound:.4f} ms)")
-    rates["jnp.encode_blocks.64"] = 64 * 65536 / enc_ms / 1e6
-    rates["jnp.decode_blocks.64"] = int(lens_d.sum()) / dec_ms / 1e6
+              f"emission equals encode_np and decodes to them")
+    par_rows, par_errs = par_kernel_checks(card, dev, blk_d, lens_d, dargs,
+                                           seed)
+    rates["jnp.encode_blocks.64"] = \
+        64 * 65536 / par_rows["encode_par"]["ms"] / 1e6
+    rates["jnp.decode_blocks.64"] = \
+        int(lens_d.sum()) / par_rows["decode_par"]["ms"] / 1e6
+    rates["jnp.decode_blocks.wide"] = \
+        par_rows["decode_par.wide"]["bytes"] / par_rows["decode_par.wide"][
+            "ms"] / 1e6
     del comp, dec, dargs
 
     # (d) the three mesh forms
@@ -1881,8 +1899,10 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
                              mesh, arr, lens_d.cpu().numpy(), 65536)]
             return res
 
-        res, secs, _ = counted(card, f"{label} {mesh} sharded_encode, "
-                                     f"sharded_decode, roundtrip_step", forms)
+        res, secs, made = counted(card, f"{label} {mesh} sharded_encode, "
+                                        f"sharded_decode, roundtrip_step",
+                                  forms)
+        assert made["decode_par"] > 0 and made["encode_par"] > 0, made
         for key in ("dry", "rt"):
             comp_r, clen_r, ok_r, offs, out_r, err_r, match = res[key]
             assert ok_r.all() and not err_r.any() and bool(match), (label, key)
@@ -1904,7 +1924,141 @@ def portable_phase(card, dev, hybrid_mib: int, jnp_mib: int, seed: int):
               "corpus chunks on make_mesh() and on two shards of the card: "
               "ok, err 0, match, offsets the exclusive scan, emission equal "
               "to encode_np, the two meshes' outputs equal")
-    return rates, counts, row, err
+    rows = {"decode_pretagged": row, **par_rows}
+    errs = {"decode_pretagged": err, **par_errs}
+    return rates, counts, rows, errs
+
+
+def par_kernel_checks(card, dev, blk_d, lens_d, dargs, seed: int):
+    """Phase 18 (c)'s kernels: ``decode_par`` (csrc/decode_par.cu) and
+    ``encode_par`` (csrc/encode_par.cu) against their plain versions on
+    the jnp engines' 64-row batch (``blk_d``, ``lens_d``: the first 64
+    corpus chunks; ``dargs``: their element rows), on the hostile decode
+    rows (``_bad_streams``' corrupt raw streams, int32 wrap cases among
+    them, and ``decode_par.edge_streams``, the element payloads of the
+    fuzz tests' hostile framed streams: codes equal, bytes equal where
+    the code is 0, error rows zero) and on the hostile encode blocks
+    (``encode_par.edge_blocks`` at bmax 65536: a run, a period-3
+    pattern, random bytes, a lazy chain, all-0xFF, 1-3 bytes, empty;
+    ``encode_par.wide_block`` and a 100,000-byte cut of it at bmax
+    2**17, whose encodings are decoded back by ``decode_par``'s wide-row
+    path; and one row of the batch's 4 MiB raw stream, timed).  Each
+    kernel timed at the batch (plain, kernel, kernel,
+    plain; events), its card time the mean of its profiler records (the
+    encoder's two kernels' means summed; the fewest records of either),
+    its bound ``kernel_bytes`` over the memory rate; the encoder also at
+    64 rows of each hostile 64 KiB block.  Returns ({name: time row},
+    {name: max_abs_err})."""
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
+                                                    kernel_bytes, profiled)
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+    from snappy_tpu_torch.spec.format import put_uvarint
+
+    def diff(a, b) -> int:
+        return int((a.int() - b.int()).abs().max()) if a.numel() else 0
+
+    def enc_err(args, bmax):
+        got = ep.encode_blocks(*args, bmax)
+        want = ep.encode_blocks_plain(*args, bmax)
+        return max(diff(g, w) for g, w in zip(got, want))
+
+    def dec_err(args, out_max, **rounds):
+        out, err = dp.decode_blocks(*args, out_max=out_max, **rounds)
+        pout, perr = dp.decode_blocks_plain(*args, out_max=out_max, **rounds)
+        good = perr == 0
+        assert not out[~good].any(), "decode_par: a row with an error " \
+                                     "is not zero"
+        return max(diff(err, perr), diff(out[good], pout[good])), err
+
+    errs = {"encode_par": enc_err((blk_d, lens_d), 65536),
+            "decode_par": dec_err(dargs, 65536)[0]}
+    hostile = [torch.from_numpy(a).to(dev) for a in dp.stream_rows(
+        _bad_streams() + dp.edge_streams(), 256)]
+    e, codes = dec_err(hostile, 256)
+    errs["decode_par"] = max(errs["decode_par"], e)
+    edges = ep.edge_blocks(seed)
+    wide = [ep.wide_block(seed), ep.wide_block(seed)[:100_000]]
+    for bmax, blocks in ((65536, list(edges.values())), (1 << 17, wide)):
+        args = [torch.from_numpy(a).to(dev)
+                for a in ep.stage_blocks(blocks, bmax)]
+        errs["encode_par"] = max(errs["encode_par"], enc_err(args, bmax))
+    # the 2**17 rows (copy-4 elements among them) decoded back by the
+    # kernel's wide-row path, against the plain version and the blocks
+    comp_w, clen_w, _ = (x.cpu().numpy() for x in ep.encode_blocks(
+        *args, 1 << 17))
+    wargs = [torch.from_numpy(a).to(dev) for a in dp.stream_rows(
+        [put_uvarint(len(b)) + comp_w[i, : clen_w[i]].tobytes()
+         for i, b in enumerate(wide)], ep.derived_sizes(1 << 17)[2] + 8)]
+    e, wcodes = dec_err(wargs, 1 << 17)
+    errs["decode_par"] = max(errs["decode_par"], e)
+    wout = dp.decode_blocks(*wargs, out_max=1 << 17)[0].cpu().numpy()
+    assert not wcodes.any() and all(
+        wout[i, : len(b)].tobytes() == b for i, b in enumerate(wide)), \
+        "decode_par: the 2**17 encodings do not decode back"
+    # one row of the 64 chunks' raw stream (decode_block_par's shape)
+    raw = native.compress(blk_d.cpu().numpy().tobytes())
+    raw_rows = dp.stream_rows([raw], 1 << (len(raw) - 1).bit_length())
+    raw_max = 64 * 65536
+    rargs = [torch.from_numpy(a).to(dev) for a in raw_rows]
+    # decode_block_par's round counts, which bound nothing at this size
+    rounds = max(17, raw_rows[0].shape[1].bit_length() + 1,
+                 raw_max.bit_length() + 1)
+    rkw = {"out_max": raw_max, "tag_rounds": rounds, "ptr_rounds": rounds}
+    e, rcodes = dec_err(rargs, **rkw)
+    errs["decode_par"] = max(errs["decode_par"], e)
+    assert not rcodes.any(), "decode_par: the raw stream's row failed"
+    log(card, f"decode_par, encode_par: max_abs_err {errs} against their "
+              f"plain versions on the 64-row batch, {len(codes)} hostile "
+              f"decode rows (codes {sorted(set(codes.tolist()))}), the "
+              f"hostile encode blocks {sorted(edges)} + 2 rows at bmax "
+              f"2**17, those 2 rows decoded back (out_max 2**17) and one "
+              f"{len(raw)}-byte raw stream row (out_max {raw_max})")
+    assert errs == {"encode_par": 0, "decode_par": 0}, errs
+
+    rows = {}
+    for name, fn_name, kern, plain, args in (
+            ("decode_par", "decode_blocks", dp.decode_blocks,
+             dp.decode_blocks_plain, dargs),
+            ("encode_par", "encode_blocks", ep.encode_blocks,
+             ep.encode_blocks_plain, (blk_d, lens_d))):
+        p1 = time_ms(lambda: plain(*args), 3)
+        k1 = time_ms(lambda: kern(*args), 20)
+        k2 = time_ms(lambda: kern(*args), 20)
+        p2 = time_ms(lambda: plain(*args), 3)
+        recs = profiled(lambda: kern(*args), 20, PROFILER_KEYS[name])
+        nbytes = kernel_bytes(fn_name, args)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": min(k1, k2), "device_ms": recs["kernel_ms_mean"],
+                      "records": [recs["kernel_records"], recs["launches"]],
+                      "plain_ms": min(p1, p2), "bound_ms": bound, "rows": 64}
+        log(card, f"{name} (main) at [64 rows, the first 64 corpus chunks]: "
+                  f"kernel {k1:.4f}/{k2:.4f} ms a call, "
+                  f"{recs['kernel_ms_mean']} ms on the card (the mean of "
+                  f"{recs['kernel_records']} profiler records of "
+                  f"{recs['launches']} launches), plain {p1:.4f}/{p2:.4f} "
+                  f"ms; bound {bound:.4f} ms ({nbytes} B at "
+                  f"{HBM_BYTES_PER_S / 1e12} TB/s)")
+    p1 = time_ms(lambda: dp.decode_blocks_plain(*rargs, **rkw), 2)
+    k1 = time_ms(lambda: dp.decode_blocks(*rargs, **rkw), 5)
+    k2 = time_ms(lambda: dp.decode_blocks(*rargs, **rkw), 5)
+    p2 = time_ms(lambda: dp.decode_blocks_plain(*rargs, **rkw), 2)
+    rows["decode_par.wide"] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                               "bytes": raw_max}
+    log(card, f"decode_par at one row of a {len(raw)}-byte raw stream into "
+              f"{raw_max} bytes (the wide-row path): kernel {k1:.4f}/"
+              f"{k2:.4f} ms a call ({raw_max / min(k1, k2) / 1e6:.4f} GB/s), "
+              f"plain {p1:.4f}/{p2:.4f} ms")
+    shapes = {}
+    for name in ("lazy chain", "run", "random", "period 3", "all 0xff"):
+        args = [torch.from_numpy(a).to(dev)
+                for a in ep.stage_blocks([edges[name]] * 64, 65536)]
+        shapes[name] = profiled(lambda: ep.encode_blocks(*args), 5,
+                                PROFILER_KEYS["encode_par"])["kernel_ms_mean"]
+    log(card, f"encode_par at 64 rows of one hostile 64 KiB block, ms on "
+              f"the card: {shapes}")
+    return rows, errs
 
 
 def _forbid(module, name: str, calls: list) -> None:
@@ -2154,7 +2308,8 @@ def no_native_phase(card, dev, mib: int, layers: int, seed: int):
     assert report["pure_python_calls"] == 0, report
     total = {k: sum(c["launches"][k] for c in report["calls"].values())
              for k in KERNELS}
-    assert total["crc32c_rows"] > 0 and total["seq_encode"] > 0, total
+    for name in ("crc32c_rows", "seq_encode", "decode_par", "encode_par"):
+        assert total[name] > 0, f"{name} never launched without native"
     for name, c in report["calls"].items():
         rate = c["bytes"] / c["s"] / 1e9
         rates[f"no_native.{name}"] = rate
@@ -2269,8 +2424,9 @@ def main() -> int:
         card, dev, full[: args.stream_mib << 20], info_blob)
     del full
     di_rates, di_counts = dist_phase(card, dev, args.dist_mib, args.seed)
-    po_rates, po_counts, times["decode_pretagged"], pre_err = portable_phase(
+    po_rates, po_counts, po_times, po_errs = portable_phase(
         card, dev, args.hybrid_mib, args.jnp_mib, args.seed)
+    times.update(po_times)
     nn_rates, nn_counts = no_native_phase(
         card, dev, args.no_native_mib, args.ckpt_layers, args.seed)
     rates.update(ck_rates, **st_rates, **di_rates, **po_rates, **nn_rates)
@@ -2282,9 +2438,8 @@ def main() -> int:
               f"{launches}")
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
-            "wavegroup": wave_err, "match_cands": match_err,
-            "decode_pretagged": pre_err}
-    # no single PyTorch call computes any of the seven functions (a CRC,
+            "wavegroup": wave_err, "match_cands": match_err, **po_errs}
+    # no single PyTorch call computes any of the nine functions (a CRC,
     # a plan copy, an LZ decode or encode, a wave plan, a candidate
     # search, a record executor), so none has a library yardstick
     table = {"kernels": [

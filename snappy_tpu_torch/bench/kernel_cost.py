@@ -75,10 +75,11 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     count whole rows, which the functions
     define (zeros after the data).  ``decode_blocks`` and
     ``encode_blocks`` are the jnp engines' batches (``decode_par``,
-    ``encode_par``: torch ops, no kernel of their own): a decode reads
-    each row's element stream and writes its rows and error codes, an
-    encode reads each block and writes its element row
-    (``encode_par.derived_sizes``' ``emax`` wide), length and flag.
+    ``encode_par``, each a CUDA kernel: ``csrc/decode_par.cu``, and
+    ``csrc/encode_par.cu``'s two): a decode reads each row's element
+    stream and writes its rows and error codes, an encode reads each
+    block and writes its element row (``encode_par.derived_sizes``'
+    ``emax`` wide), length and flag.
     ``out_max`` is the output row's bytes (the flat kernel's
     ``dst_max``), ``out_rows`` the flat kernel's compose panel."""
     import torch
@@ -137,12 +138,14 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     raise KeyError(name)
 
 
-def profiled(fn, reps: int, key: str, tries: int = 3) -> dict:
+def profiled(fn, reps: int, key, tries: int = 3) -> dict:
     """The profiler's device records over ``reps`` calls of ``fn`` (after
     one warm-up call): how many kernel records name ``key`` (one a launch
     when none was lost), their mean milliseconds, and every device
-    interval's milliseconds a call.  A profiled run that recorded no
-    record of ``key`` (device tracing is not always given to a process)
+    interval's milliseconds a call.  ``key`` may be a tuple, a call's
+    kernels: then the records are the fewest of any one kernel and the
+    mean is the sum of each kernel's mean.  A profiled run that recorded
+    no record of a key (device tracing is not always given to a process)
     is run again, up to ``tries`` runs."""
     import statistics
 
@@ -150,6 +153,7 @@ def profiled(fn, reps: int, key: str, tries: int = 3) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    keys = (key,) if isinstance(key, str) else tuple(key)
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -158,12 +162,13 @@ def profiled(fn, reps: int, key: str, tries: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        mine = [e.time_range.elapsed_us() for e in evs if key in e.name]
-        if mine:
+        mine = [[e.time_range.elapsed_us() for e in evs if k in e.name]
+                for k in keys]
+        if all(mine):
             break
-    return {"launches": reps, "kernel_records": len(mine),
-            "kernel_ms_mean": (statistics.fmean(mine) / 1e3 if mine
-                               else None),
+    return {"launches": reps, "kernel_records": min(len(m) for m in mine),
+            "kernel_ms_mean": (sum(statistics.fmean(m) for m in mine) / 1e3
+                               if all(mine) else None),
             "device_ms_per_call": (sum(e.time_range.elapsed_us()
                                        for e in evs) / reps / 1e3
                                    if evs else None)}

@@ -9,7 +9,8 @@ a plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o snappy_tpu_torch/_build/libsnappy_cuda.so *.o
 
-The library is rebuilt only when the sources' sha256 changes (the
+The library is rebuilt only when the sha256 of the sources and of the
+headers they share (``csrc/*.cuh``) changes (the
 verify-before-activate rule of ``snappy_tpu_torch/native``).  Unlike
 ``native._build``, which returns None, a failed build raises
 with nvcc's output: a wrapper handed a CUDA tensor has no other way to
@@ -51,8 +52,9 @@ def sources() -> list[str]:
 
 
 def _source_hash() -> str:
+    """The sources' and their shared headers' (``csrc/*.cuh``) sha256."""
     h = hashlib.sha256()
-    for path in sources():
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -144,6 +146,14 @@ def _declare(lib) -> None:
     lib.snc_match_blocks_per_sm.argtypes = [i32, p]
     lib.snc_pretagged.restype = ctypes.c_int
     lib.snc_pretagged.argtypes = [p, i64, i32, p, i32, p, p, p, i32, i32, p]
+    lib.snc_decode_par.restype = ctypes.c_int
+    lib.snc_decode_par.argtypes = [p, i64, i32, p, p, p, p, i32, p, i32, p,
+                                   p]
+    lib.snc_decode_par_scratch.restype = ctypes.c_int
+    lib.snc_decode_par_scratch.argtypes = [i32, i32, i32, p]
+    lib.snc_encode_par.restype = ctypes.c_int
+    lib.snc_encode_par.argtypes = [p, i64, i32, p, p, p, p, i32, p, i32, p,
+                                   p, i32, p]
     lib.snc_error_string.restype = ctypes.c_char_p
     lib.snc_error_string.argtypes = [ctypes.c_int]
 

@@ -61,8 +61,16 @@ def pow_table(k: int, n: int, device) -> torch.Tensor:
     3: R_B^-i), its first ``n`` values as int64 on ``device``."""
     key = (k, n, str(device))
     if key not in _table_cache:
+        t = _pow_tables()[k]
+        if n > len(t):
+            # a 2**17-byte block hashes 2**17 + 1 prefixes: the powers
+            # go on past JAX's tables (whose encoder stops one short)
+            step = np.full(n - len(t), t[1], dtype=np.uint32)
+            with np.errstate(over="ignore"):
+                step[0] = t[-1] * t[1]
+                t = np.concatenate([t, np.multiply.accumulate(step)])
         _table_cache[key] = torch.from_numpy(
-            _pow_tables()[k][:n].astype(np.int64)).to(device)
+            t[:n].astype(np.int64)).to(device)
     return _table_cache[key]
 
 

@@ -1,23 +1,48 @@
-"""Parallel Snappy decoder in torch ops: the portable decode engine.
+"""Parallel Snappy decoder: the CUDA kernel and its plain version, the
+portable decode engine.
 
 Counterpart of ``snappy_tpu/kernels/decode_jnp.py`` (an XLA program, not
-a Pallas kernel), the same program in torch ops on the tensor's device:
-speculative tag parse at every byte position -> orbit marking by pointer
-doubling -> one source pointer per output byte -> pointer-doubling copy
-resolution -> one gather.  Each row of a padded ``[B, cmax]`` batch is
-one independent element stream; the ``[B]`` axis stands in for ``vmap``.
+a Pallas kernel).  Each row of a padded ``[B, cmax]`` batch is one
+independent element stream; ``decode_blocks`` returns ``(out uint8 [B,
+out_max], err int32 [B])``.
 
 Validation does not raise on the device: each row gets an error code
-(0 = OK, the codes below are ``decode_jnp``'s, not ``decode_seq``'s),
+(0 = OK, the codes below are ``decode_jnp``'s, not ``decode_seq``'s:
+the largest code whose condition holds at any tag the walk reaches),
 and the host maps codes to CorruptError.  Lengths, offsets and sums are
 int32 and wrap as JAX's do, so hostile 4-byte fields give JAX's codes.
-Gathers clip their indices explicitly, as the JAX program does, and
-scatters with JAX's ``mode="drop"`` write into one extra slot that is
-cut off afterwards.  The doubling loops run their full round counts
-(``common_par``).
+
+On a CUDA tensor the wrapper launches ``csrc/decode_par.cu`` (a serial
+walk per row: a parser warp that follows every tag and ORs the per-tag
+conditions, and a writer warp; rows wider than ``IMAGE`` bytes are
+walked a ``CHUNK`` of compressed bytes a warp, their records go to
+device memory, and every output byte's source is resolved by pointer
+jumping over the whole card); on a CPU tensor it runs the plain
+version, ``decode_blocks_plain``: JAX's program in torch ops on the
+tensor's device (speculative tag parse at every byte position -> orbit
+marking by pointer doubling -> one source pointer per output byte ->
+pointer-doubling copy resolution -> one gather; the ``[B]`` axis stands
+in for ``vmap``; gathers clip their indices as the JAX program does,
+and scatters with JAX's ``mode="drop"`` write into one extra slot that
+is cut off; the doubling loops run their full round counts,
+``common_par``).  There is no other switch.  A row with ``err != 0`` is
+all zero from the kernel; its bytes from the plain version are what
+its gather gives (no caller reads them).  The kernel walks the stream
+exactly, so on a CUDA tensor the round counts must bound nothing:
+``2**tag_rounds >= ceil(cmax / 2)`` (every tag spans 2 bytes or more)
+and ``2**ptr_rounds >= out_max``, else ValueError.
+
+``decode_rows_model`` is the kernel's decomposition on the host, for
+the tests: 32-byte windows of speculative headers, the chain of starts,
+the per-tag conditions ORed over the walk, the records executed with
+the writer's guards; in a row wider than ``IMAGE`` the chunked walk
+(speculative walks a chunk, the entries, counts and a scan, the
+records) and the per-byte pointers in rounds of jumping.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -29,8 +54,10 @@ from snappy_tpu_torch.kernels.common_par import (
     resolve_pointers,
     shifted,
 )
+from snappy_tpu_torch.spec.format import put_uvarint, read_uvarint
 
-__all__ = ["decode_block_par", "decode_blocks", "ERR_NONE", "ERR_MESSAGES"]
+__all__ = ["decode_block_par", "decode_blocks", "decode_blocks_plain",
+           "decode_rows_model", "ERR_NONE", "ERR_MESSAGES"]
 
 ERR_NONE = 0
 ERR_OVERRUN_INPUT = 1
@@ -46,6 +73,13 @@ ERR_MESSAGES = {
     ERR_BAD_OFFSET: "zero copy offset or offset before block start",
     ERR_LITERAL_OVERRUN: "literal overruns input",
 }
+
+WINDOW = 32  # bytes the kernel's parser warp decodes speculatively at once
+IMAGE = 65536  # widest row the kernel decodes in shared memory
+CHUNK = 4096  # compressed bytes of a wider row a warp walks at once
+
+# kernel launches made by decode_blocks (one per CUDA call)
+launches = 0
 
 
 def _select(conds, vals, default):
@@ -188,6 +222,30 @@ def _decode(comp, start, comp_len, dst_len, out_max: int, tag_rounds: int,
     return out, err[:, 0]
 
 
+def _check(comp, start, comp_len, dst_len):
+    """The batch's tensors as the functions take them: int32 start,
+    comp_len and dst_len ``[B]`` on ``comp``'s device."""
+    if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
+        raise ValueError(f"comp must be uint8 [B, cmax >= 1], got "
+                         f"{comp.dtype} {tuple(comp.shape)}")
+    nb = comp.shape[0]
+    for name, t in (("start", start), ("comp_len", comp_len),
+                    ("dst_len", dst_len)):
+        if tuple(t.shape) != (nb,) or t.device != comp.device:
+            raise ValueError(f"{name} must be [{nb}] on {comp.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    return tuple(t.to(torch.int32) for t in (start, comp_len, dst_len))
+
+
+def decode_blocks_plain(comp, start, comp_len, dst_len, out_max: int = 65536,
+                        tag_rounds: int = 17, ptr_rounds: int = 17):
+    """Plain torch version: JAX's program in torch ops, on ``comp``'s
+    device; the round counts bound its doubling loops as JAX's do."""
+    start, comp_len, dst_len = _check(comp, start, comp_len, dst_len)
+    return _decode(comp, start, comp_len, dst_len, out_max, tag_rounds,
+                   ptr_rounds)
+
+
 def decode_blocks(comp, start, comp_len, dst_len, out_max: int = 65536,
                   tag_rounds: int = 17, ptr_rounds: int = 17):
     """Batched parallel decode on ``comp``'s device.
@@ -198,20 +256,52 @@ def decode_blocks(comp, start, comp_len, dst_len, out_max: int = 65536,
     comp_len:  int32 [B]         valid bytes per row
     dst_len:   int32 [B]         expected decoded length per row
     returns    (uint8 [B, out_max], int32 [B] error codes)
+
+    CUDA tensors run the kernel, CPU tensors the plain version.
     """
-    if comp.dtype != torch.uint8 or comp.dim() != 2 or comp.shape[1] < 1:
-        raise ValueError(f"comp must be uint8 [B, cmax >= 1], got "
-                         f"{comp.dtype} {tuple(comp.shape)}")
-    nb = comp.shape[0]
-    for name, t in (("start", start), ("comp_len", comp_len),
-                    ("dst_len", dst_len)):
-        if tuple(t.shape) != (nb,) or t.device != comp.device:
-            raise ValueError(f"{name} must be [{nb}] on {comp.device}, got "
-                             f"{tuple(t.shape)} on {t.device}")
-    start, comp_len, dst_len = (t.to(torch.int32)
+    global launches
+    if comp.device.type == "cpu":
+        return decode_blocks_plain(comp, start, comp_len, dst_len, out_max,
+                                   tag_rounds, ptr_rounds)
+    start, comp_len, dst_len = _check(comp, start, comp_len, dst_len)
+    if comp.device.type != "cuda":
+        raise ValueError(f"unsupported device {comp.device}")
+    nb, cmax = comp.shape
+    if (1 << tag_rounds) < (cmax + 1) // 2 or (1 << ptr_rounds) < out_max:
+        raise ValueError(
+            f"tag_rounds={tag_rounds}, ptr_rounds={ptr_rounds} bound the "
+            f"walk of {cmax}-byte rows into {out_max} bytes; the kernel "
+            f"walks them whole")
+    if comp.stride(1) != 1:
+        raise ValueError("comp must be contiguous along the row")
+    from snappy_tpu_torch.kernels import _build
+
+    start, comp_len, dst_len = (t.contiguous()
                                 for t in (start, comp_len, dst_len))
-    return _decode(comp, start, comp_len, dst_len, out_max, tag_rounds,
-                   ptr_rounds)
+    dev = comp.device
+    out = torch.empty(nb, out_max, dtype=torch.uint8, device=dev)
+    err = torch.empty(nb, dtype=torch.int32, device=dev)
+    if nb == 0:
+        return out, err
+    # rows wider than IMAGE: scratch for the chunks' walks, the records
+    # and the pointer rounds, as the kernel lays it out
+    lib = _build.lib()
+    nbytes = ctypes.c_int64(0)
+    _build.check(lib.snc_decode_par_scratch(cmax, out_max, nb,
+                                            ctypes.addressof(nbytes)),
+                 "decode_par")
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
+               if nbytes.value else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.snc_decode_par(
+            comp.data_ptr(), comp.stride(0), cmax, start.data_ptr(),
+            comp_len.data_ptr(), dst_len.data_ptr(), out.data_ptr(), out_max,
+            err.data_ptr(), nb,
+            None if scratch is None else scratch.data_ptr(), stream)
+    _build.check(rc, "decode_par")
+    launches += 1
+    return out, err
 
 
 def _bucket(n: int, floor: int = 256) -> int:
@@ -259,3 +349,257 @@ def decode_block_par(comp_bytes: bytes, dst_len: int, start: int = 0,
     counterpart: ``decode_block_par_to_device``'s bytes on the host."""
     return decode_block_par_to_device(comp_bytes, dst_len, start,
                                       device).cpu().numpy().tobytes()
+
+
+def edge_streams() -> list:
+    """The element payloads (raw streams: varint, then elements) of the
+    compressed chunks of ``tests/test_torch_framed_fuzz.py``'s sixteen
+    hostile framed streams: an empty payload, a varint past the
+    elements, trailing bytes, elements after a varint of 0, a literal
+    past the payload, copy offset 0, a copy before the block start, and
+    the good chunk they sit beside."""
+    lit = b"\x0cabcd"  # a 4-byte literal element
+    return [b"", put_uvarint(10) + lit, put_uvarint(4) + lit + b"xyz",
+            put_uvarint(0) + lit, put_uvarint(8) + b"\x1cabc",
+            put_uvarint(8) + lit + bytes([(3 << 2) | 1, 0]),
+            put_uvarint(8) + lit + bytes([(3 << 2) | 2, 9, 0]),
+            put_uvarint(4) + lit]
+
+
+def stream_rows(streams, cmax: int):
+    """Raw streams as rows of a batch (numpy): (comp uint8 [B, cmax],
+    start, comp_len, dst_len int32 [B]), start after each stream's
+    varint and dst_len its value (at most 2**30); a stream whose varint
+    does not parse gets start 0 and dst_len 0."""
+    nb = len(streams)
+    comp = np.zeros((nb, cmax), np.uint8)
+    start, clen, dlen = (np.zeros(nb, np.int32) for _ in range(3))
+    for i, s in enumerate(streams):
+        comp[i, : len(s)] = np.frombuffer(s, np.uint8)
+        try:
+            d, h = read_uvarint(s, 0)
+        except Exception:
+            d, h = 0, 0
+        start[i], clen[i], dlen[i] = h, len(s), min(d, 1 << 30)
+    return comp, start, clen, dlen
+
+
+# ---------------------------------------------------------------------
+# the kernel's decomposition on the host (tests only)
+
+
+def _i32(x: int) -> int:
+    """x wrapped to int32, as the JAX program's arithmetic wraps."""
+    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
+def _header(hb: bytes, q: int, cmax: int):
+    """The tag a header at q would be: (is_lit, hdr, ln, off, nxt,
+    lit_end), int32 as the parser lane computes it."""
+    b0, b1, b2, b3, b4 = hb[q : q + 5]
+    tag, x = b0 & 3, b0 >> 2
+    w4 = b1 | b2 << 8 | b3 << 16 | b4 << 24
+    if tag == 0:
+        hdr = 1 if x < 60 else x - 58
+        raw = (x, b1, w4 & 0xFFFF, w4 & 0xFFFFFF, w4)[max(0, x - 59)]
+        ln = _i32(raw + 1)
+        nxt = _i32(q + hdr + ln)
+        lit_end = nxt
+        if x == 63 and b4 >= 0x40:  # a poisoned length runs past the row
+            nxt = cmax + 1
+        return True, hdr, ln, 0, nxt, lit_end
+    hdr = (2, 3, 5)[tag - 1]
+    ln = 4 + (x & 7) if tag == 1 else 1 + x
+    off = (((b0 & 0xE0) << 3) | b1 if tag == 1
+           else w4 & 0xFFFF if tag == 2 else _i32(w4))
+    return False, hdr, ln, off, q + hdr, q + hdr
+
+
+def _successor(hb: bytes, q: int, cmax: int, clen: int) -> int:
+    """The walk's next position after a tag at q: its nxt where that is
+    at most clen, else cmax, and at least q + 1."""
+    nxt = _header(hb, q, cmax)[4]
+    return max(nxt if nxt <= clen else cmax, q + 1)
+
+
+def _walk_span(hb: bytes, cmax: int, clen: int, dlen: int, s: int, stop: int,
+               d: int):
+    """A warp's walk of the tags at positions below ``stop``, from s,
+    WINDOW bytes at a time: a header speculatively at every position of
+    the window, the chain of starts from its first (ending past the
+    window or at ``stop``), the per-tag conditions of every start ORed, a
+    record per start.  ``hb`` is padded past the row.  Returns (records,
+    flags, last_nxt or None, the position after the walk, d after it,
+    the tags' positions); flags is (overruns output, bad offset, literal
+    overruns input)."""
+    over_out = bad_off = lit_over = False
+    last_nxt = None
+    records, starts = [], []
+    while s < stop:
+        lanes = [_header(hb, s + i, cmax) for i in range(WINDOW)]
+        nq = [max(el[4] if el[4] <= clen else cmax, s + i + 1)
+              for i, el in enumerate(lanes)]
+        p = 0
+        while True:
+            is_lit, hdr, ln, off, nxt, lit_end = lanes[p]
+            over_out |= ln > _i32(dlen - d)
+            bad_off |= not is_lit and (off <= 0 or off > d)
+            lit_over |= is_lit and lit_end > clen
+            records.append((d, ln, s + p + hdr if is_lit else off,
+                            0 if is_lit else 1))
+            starts.append(s + p)
+            d = _i32(d + ln)
+            last_nxt = nxt
+            np_ = nq[p] - s
+            if np_ >= WINDOW or nq[p] >= stop:
+                break
+            p = np_
+        s = nq[p]
+    return records, (over_out, bad_off, lit_over), last_nxt, s, d, starts
+
+
+def _row_code(start, clen, dlen, d, flags, last_nxt) -> int:
+    """The row's code: the last of decode_jnp's conditions that holds."""
+    ends_ok = ((last_nxt is not None and last_nxt == clen)
+               or (dlen == 0 and start == clen))
+    err = ERR_NONE
+    for cond, code in ((not ends_ok, ERR_OVERRUN_INPUT),
+                       (d != dlen, ERR_SIZE_MISMATCH),
+                       (flags[0], ERR_OVERRUN_OUTPUT),
+                       (flags[1], ERR_BAD_OFFSET),
+                       (flags[2], ERR_LITERAL_OVERRUN)):
+        if cond:
+            err = code
+    return err
+
+
+def walk_records(hb: bytes, cmax: int, start: int, clen: int, dlen: int):
+    """The parser warp of a row of at most IMAGE bytes: one walk from
+    clamp(start, 0, cmax) over the positions below lim = min(clen,
+    cmax).  ``hb`` is the row's first lim bytes.  Returns (records,
+    err); a record is (d, ln, a, kind): kind 0 a literal of row bytes
+    [a, a + ln), kind 1 a copy of offset a."""
+    lim = max(0, min(clen, cmax))
+    hb = hb[:lim] + bytes(WINDOW + 5)
+    records, flags, last_nxt, _, d, _ = _walk_span(
+        hb, cmax, clen, dlen, min(max(start, 0), cmax), lim, 0)
+    return records, _row_code(start, clen, dlen, d, flags, last_nxt)
+
+
+def walk_records_chunked(hb: bytes, cmax: int, start: int, clen: int,
+                         dlen: int, chunk: int = CHUNK):
+    """The wide rows' walk, as the kernel splits it over chunks of
+    ``chunk`` bytes from s0 = clamp(start, 0, cmax) to lim:
+
+      1. a warp a chunk walks speculatively from the chunk's first byte,
+         marking the tag starts it visits and keeping its exit (the
+         first position at or past the chunk's end);
+      2. one thread a row finds where the true walk enters each chunk:
+         from the previous chunk's exit it steps tag by tag until a
+         position the chunk's walk visited (from there the two walks
+         agree: the chunk's exit) or the chunk's end;
+      3. a warp a chunk walks again from its entry, counting its tags
+         and output bytes; a scan gives each chunk its first record and
+         output offset;
+      4. a warp a chunk walks from its entry at that offset, writing its
+         records and ORing the per-tag conditions.
+
+    Returns (records, err), walk_records' own."""
+    lim = max(0, min(clen, cmax))
+    hb = hb[:lim] + bytes(WINDOW + 5)
+    s0 = min(max(start, 0), cmax)
+    cuts = list(range(s0, lim, chunk))
+    stops = [min(c + chunk, lim) for c in cuts]
+    visited, exits = set(), []
+    for c, stop in zip(cuts, stops):  # 1
+        _, _, _, x, _, at = _walk_span(hb, cmax, clen, dlen, c, stop, 0)
+        visited.update(at)
+        exits.append(x)
+    entries, e = [], s0  # 2
+    for k, stop in enumerate(stops):
+        entries.append(e)
+        while e < stop:
+            if e in visited:
+                e = exits[k]
+                break
+            e = _successor(hb, e, cmax, clen)
+    counts = [_walk_span(hb, cmax, clen, dlen, e, stop, 0)  # 3
+              for e, stop in zip(entries, stops)]
+    records, flags, last_nxt, d = [], (False,) * 3, None, 0
+    for (e, stop), (_, _, _, _, dk, _) in zip(zip(entries, stops),
+                                              counts):  # 4
+        recs, fl, ln_k, _, _, _ = _walk_span(hb, cmax, clen, dlen, e, stop, d)
+        records += recs
+        flags = tuple(a or b for a, b in zip(flags, fl))
+        last_nxt = ln_k if ln_k is not None else last_nxt
+        d = _i32(d + dk)
+    return records, _row_code(start, clen, dlen, d, flags, last_nxt)
+
+
+def execute_records(records, row: bytes, out: np.ndarray) -> None:
+    """The writer warp: the records in order into ``out`` (uint8
+    [out_max]) with its guards: writes only inside [0, out_max), a copy
+    only from below d, literal bytes past ``row`` read as zero."""
+    out_max = out.shape[0]
+    src = np.frombuffer(row + bytes(1), np.uint8)
+    for d, ln, a, kind in records:
+        if d < 0 or d >= out_max or ln <= 0:
+            continue
+        n_w = min(ln, out_max - d)
+        i = np.arange(n_w, dtype=np.int64)
+        if kind == 0:
+            j = a + i
+            out[d : d + n_w] = np.where(j < len(row),
+                                        src[np.minimum(j, len(row))], 0)
+        elif 0 < a <= d:
+            out[d : d + n_w] = out[d - a + (i if a >= ln else i % a)]
+
+
+def resolve_records(records, row: bytes, out: np.ndarray, total: int):
+    """The wide rows' resolution (a good row's records): each byte below
+    min(total, out_max) its source, -1 - i for byte i of ``row`` or the
+    index of an earlier output byte, found by a binary search of the
+    records' output offsets; then rounds of ``p = ptr[p]`` until
+    2**rounds >= out_max; then each byte from ``row`` (zero past it)."""
+    out_max = out.shape[0]
+    kept = min(max(total, 0), out_max)
+    ptr = np.full(out_max, -1 - (1 << 31), np.int64)
+    if kept:
+        rec = np.array(records, np.int64).reshape(-1, 4)
+        i = np.arange(kept, dtype=np.int64)
+        r = rec[np.searchsorted(rec[:, 0], i, side="right") - 1]
+        rel = i - r[:, 0]
+        ptr[:kept] = np.where(r[:, 3] == 0, -1 - (r[:, 2] + rel),
+                              r[:, 0] - r[:, 2] + rel % np.maximum(r[:, 2], 1))
+    reach = 1
+    while reach < out_max:
+        ptr = np.where(ptr >= 0, ptr[np.maximum(ptr, 0)], ptr)
+        reach <<= 1
+    assert (ptr < 0).all()
+    src = -1 - ptr
+    padded = np.frombuffer(row + bytes(1), np.uint8)
+    out[:] = np.where(src < len(row), padded[np.minimum(src, len(row))], 0)
+
+
+def decode_rows_model(comp: np.ndarray, start, comp_len, dst_len,
+                      out_max: int):
+    """decode_blocks' result computed as the kernel decomposes it: per
+    row walk_records then execute_records (rows of at most IMAGE bytes)
+    or walk_records_chunked then resolve_records (wider rows), and a row
+    whose code is not 0 all zero.  Numpy in, numpy out."""
+    nb, cmax = comp.shape
+    out = np.zeros((nb, out_max), np.uint8)
+    err = np.zeros(nb, np.int32)
+    for b in range(nb):
+        clen = int(comp_len[b])
+        row = comp[b, : max(0, min(clen, cmax))].tobytes()
+        walk = walk_records_chunked if out_max > IMAGE else walk_records
+        records, err[b] = walk(row, cmax, int(start[b]), clen,
+                               int(dst_len[b]))
+        if err[b] != ERR_NONE:
+            continue
+        if out_max > IMAGE:
+            resolve_records(records, row, out[b], int(dst_len[b]))
+        else:
+            execute_records(records, row, out[b])
+    return out, err

@@ -1,8 +1,23 @@
-"""Parallel Snappy block encoder in torch ops: the portable encode engine.
+"""Parallel Snappy block encoder: the CUDA kernels and their plain
+version, the portable encode engine.
 
 Counterpart of ``snappy_tpu/kernels/encode_jnp.py`` (an XLA program, not
-a Pallas kernel), the same program in torch ops on the tensor's device,
-with the ``[B]`` batch axis in place of ``vmap``.  Per block:
+a Pallas kernel).  ``encode_blocks(block uint8 [B, bmax], n [B], bmax)``
+returns ``(comp uint8 [B, emax], comp_len int32 [B], ok bool [B])``:
+``comp[b, :comp_len[b]]`` is block b's element stream (no varint
+preamble), the rest of the row zero, ``emax`` from ``derived_sizes``;
+rows with ok=False are re-encoded on the host.  The emission is
+``kernels/encode_np.py``'s, which states the contract, and so
+``encode_jnp``'s byte for byte.
+
+On a CUDA tensor the wrapper launches ``csrc/encode_par.cu``: a
+candidate kernel (a stable radix sort of each block's positions by
+4-byte word, one CTA of 32 warps a block) and a parse-and-emit kernel
+(a greedy and a lazy walk warp a block on exact match lengths, compared
+on demand; prune, shift, the smaller emission).  On a CPU tensor it
+runs the plain version, ``encode_blocks_plain``, JAX's program in torch
+ops with the ``[B]`` batch axis in place of ``vmap``.  There is no other
+switch.  Per block the plain version runs
 
   1. match finding: 4-gram words -> stable sort -> candidates {prev1,
      prev2, first occurrence} -> unbounded match length by paired
@@ -14,11 +29,22 @@ with the ``[B]`` batch axis in place of ``vmap``.  Per block:
   4. exact verification of every copy byte; a block that fails (a hash
      collision) reports ok=False and the host re-encodes it.
 
-The emission is byte-identical to ``encode_jnp``'s and so to
-``kernels/encode_np.py``'s, which states the contract.  The hashes are
-uint32 values held in int64 (``common_par.mul32`` for their products);
-the sort key keeps JAX's tie of an invalid position (0x7FFFFFFF) with the
-word 0xFFFFFFFF, under a stable sort.
+The hashes are uint32 values held in int64 (``common_par.mul32`` for
+their products); the sort key keeps JAX's tie of an invalid position
+(0x7FFFFFFF) with the word 0xFFFFFFFF, under a stable sort.  The
+kernels compare bytes instead of hashes, so they are ok wherever the
+plain version is and differ from it only where its hashes collide
+(~2^-64 a compare).  Both take a length outside ``[0, bmax]`` as the
+contract does not: the kernels clamp it.  An offset of 65,536 or more
+(only in a block longer than 64 KiB, ``bmax = 2**17``, a width JAX's
+function does not run) is emitted by both in ``encode_np``'s chop atoms,
+each a copy-4 (tag 3, a 4-byte offset), and costed so in the prune,
+the shift and the choice of walk.
+
+``encode_blocks_model`` is the kernels' decomposition on the host, for
+the tests: the radix passes with their per-warp counts and run heads,
+the walks on exact lengths, prune, shift and emission as the warps run
+them.
 """
 
 from __future__ import annotations
@@ -36,11 +62,22 @@ from snappy_tpu_torch.kernels.common_par import (
     prefix_hashes,
     shifted,
 )
+from snappy_tpu_torch.kernels.encode_np import _copy_cost, _lit_cost
+from snappy_tpu_torch.spec import reference
 
-__all__ = ["encode_blocks", "encode_block_par", "derived_sizes"]
+__all__ = ["encode_blocks", "encode_blocks_plain", "encode_block_par",
+           "encode_blocks_model", "derived_sizes"]
 
 _I32MAX = 0x7FFFFFFF
 I32 = torch.int32
+
+COPY4_OFFSET = 1 << 16  # the least offset a copy-2 cannot hold
+CAND_WARPS = 32   # warps of the candidate kernel's CTA (sort chunks)
+CAP = 64          # bytes of a match the candidate kernel measures
+LCP_STEP = 128    # bytes a walk warp compares a step (4 a lane)
+
+# kernel launches made by encode_blocks (one per CUDA call)
+launches = 0
 
 
 def derived_sizes(bmax: int) -> tuple[int, int, int]:
@@ -60,14 +97,16 @@ def _lit_cost_v(r):
 
 
 def _copy_chops(off, length):
-    """Reference chopping of a copy: (c64, e60, remf, cost)."""
+    """Reference chopping of a copy: (c64, e60, remf, cost).  An offset
+    of 65,536 or more takes the same atoms, each a 5-byte copy-4."""
     c64 = torch.where(length >= 68, torch.div(length - 68, 64,
                                               rounding_mode="floor") + 1, 0)
     rem1 = length - 64 * c64
     e60 = (rem1 > 64).to(I32)
     remf = rem1 - 60 * e60
     final_cost = torch.where((remf >= 12) | (off >= 2048), 3, 2)
-    cost = 3 * c64 + 3 * e60 + final_cost
+    cost = torch.where(off >= COPY4_OFFSET, 5 * (c64 + e60 + 1),
+                       3 * c64 + 3 * e60 + final_cost)
     return c64, e60, remf, torch.where(length >= 4, cost, 0)
 
 
@@ -325,7 +364,8 @@ def _emit(block, n, cpos, clen, coff, nc, bmax: int, cp_max: int,
     afinal = arel == _gather(natoms_copy, kc) - 1
     off_at = _gather(coff, kc)
     copy1 = afinal & (alen < 12) & (off_at < 2048)
-    copy_size = torch.where(copy1, 2, 3)
+    copy4 = off_at >= COPY4_OFFSET
+    copy_size = torch.where(copy1, 2, torch.where(copy4, 5, 3))
 
     asize = torch.where(atom_valid, torch.where(is_copy_atom, copy_size,
                                                 lit_hdr + lit_len_at), 0)
@@ -342,6 +382,7 @@ def _emit(block, n, cpos, clen, coff, nc, bmax: int, cp_max: int,
 
     b_is_copy = _gather(is_copy_atom, batom)
     b_copy1 = _gather(copy1, batom)
+    b_copy4 = _gather(copy4, batom)
     b_alen = _gather(alen, batom)
     b_off = _gather(off_at, batom)
     b_lit_len = _gather(lit_len_at, batom)
@@ -354,8 +395,8 @@ def _emit(block, n, cpos, clen, coff, nc, bmax: int, cp_max: int,
         torch.where(brel == 0,
                     ((b_off >> 8) << 5) | ((b_alen - 4) << 2) | 1,
                     b_off & 255),
-        torch.where(brel == 0, ((b_alen - 1) << 2) | 2,
-                    torch.where(brel == 1, b_off & 255, (b_off >> 8) & 255)))
+        torch.where(brel == 0, ((b_alen - 1) << 2) | (2 + b_copy4.to(I32)),
+                    (b_off >> (8 * (brel - 1).clamp(0, 3))) & 255))
     lit_tag = torch.where(b_lit_extra == 0, (b_lit_len - 1) << 2,
                           (59 + b_lit_extra) << 2)
     lit_hdr_val = torch.where(
@@ -392,14 +433,7 @@ def _verify(block, n, cpos, clen, coff, nc, bmax: int, cp_max: int):
     return (~covered | (eq & (src >= 0))).all(dim=1, keepdim=True) & struct_ok
 
 
-def encode_blocks(block: torch.Tensor, n: torch.Tensor, bmax: int = 65536):
-    """Batched parallel encode on ``block``'s device.
-
-    block: uint8 [B, bmax] padded blocks; n: int [B] valid lengths.
-    Returns (comp uint8 [B, emax], comp_len int32 [B], ok bool [B]); rows
-    with ok=False must be re-encoded on the host (a hash collision).  The
-    output is the element stream only (no varint preamble).
-    """
+def _check(block: torch.Tensor, n: torch.Tensor, bmax: int) -> None:
     if block.dtype != torch.uint8 or block.dim() != 2 or block.shape[1] != bmax:
         raise ValueError(f"block must be uint8 [B, {bmax}], got {block.dtype} "
                          f"{tuple(block.shape)}")
@@ -408,6 +442,13 @@ def encode_blocks(block: torch.Tensor, n: torch.Tensor, bmax: int = 65536):
     nb = block.shape[0]
     if tuple(n.shape) != (nb,) or n.device != block.device:
         raise ValueError(f"n must be [{nb}] on {block.device}")
+
+
+def encode_blocks_plain(block: torch.Tensor, n: torch.Tensor,
+                        bmax: int = 65536):
+    """Plain torch version: JAX's program in torch ops, on ``block``'s
+    device."""
+    _check(block, n, bmax)
     cp_max, atom_max, emax = derived_sizes(bmax)
     n = n.to(I32)[:, None]
     cand, ml = _find_matches(block, n, bmax)
@@ -424,13 +465,57 @@ def encode_blocks(block: torch.Tensor, n: torch.Tensor, bmax: int = 65536):
     return comp, total_len[:, 0], ok[:, 0]
 
 
+def encode_blocks(block: torch.Tensor, n: torch.Tensor, bmax: int = 65536):
+    """Batched parallel encode on ``block``'s device.
+
+    block: uint8 [B, bmax] padded blocks; n: int [B] valid lengths.
+    Returns (comp uint8 [B, emax], comp_len int32 [B], ok bool [B]); rows
+    with ok=False must be re-encoded on the host.  The output is the
+    element stream only (no varint preamble).  CUDA tensors run the
+    kernels, CPU tensors the plain version.
+    """
+    global launches
+    if block.device.type == "cpu":
+        return encode_blocks_plain(block, n, bmax)
+    _check(block, n, bmax)
+    if block.device.type != "cuda":
+        raise ValueError(f"unsupported device {block.device}")
+    if block.stride(1) != 1:
+        raise ValueError("block must be contiguous along the row")
+    from snappy_tpu_torch.kernels import _build
+
+    nb = block.shape[0]
+    cp_max, _atom_max, emax = derived_sizes(bmax)
+    dev = block.device
+    n = n.to(I32).contiguous()
+    comp = torch.empty(nb, emax, dtype=torch.uint8, device=dev)
+    comp_len = torch.empty(nb, dtype=I32, device=dev)
+    ok = torch.empty(nb, dtype=torch.bool, device=dev)
+    if nb == 0:
+        return comp, comp_len, ok
+    # scratch: the sort's two order buffers, each position's candidate
+    # entry, and each walk's copies (position, length, offset, pad)
+    order = torch.empty(nb, 2, bmax, dtype=I32, device=dev)
+    cands = torch.empty(nb, bmax, dtype=torch.int64, device=dev)
+    copies = torch.empty(nb, 2, cp_max, 4, dtype=I32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.lib().snc_encode_par(
+            block.data_ptr(), block.stride(0), bmax, n.data_ptr(),
+            order.data_ptr(), cands.data_ptr(), copies.data_ptr(), cp_max,
+            comp.data_ptr(), emax, comp_len.data_ptr(), ok.data_ptr(), nb,
+            stream)
+    _build.check(rc, "encode_par")
+    launches += 1
+    return comp, comp_len, ok
+
+
 def encode_block_par(block: bytes, bmax: int | None = None,
                      device=None) -> bytes:
     """Single-block convenience wrapper, ``encode_block_jnp``'s
     counterpart: the element stream of ``block`` (the reference
     encoder's on a hash collision)."""
     from snappy_tpu_torch.device import resolve
-    from snappy_tpu_torch.spec import reference
 
     n = len(block)
     if n == 0:
@@ -448,3 +533,314 @@ def encode_block_par(block: bytes, bmax: int | None = None,
     if not bool(ok[0]):  # pragma: no cover - hash collision fallback
         return reference.encode_block(block)
     return comp[0, : int(total_len[0])].cpu().numpy().tobytes()
+
+
+def lazy_chain_block(size: int, seed: int) -> bytes:
+    """A block whose lazy walk defers along a chain of growing matches:
+    for k < K, S[k : k + 8 + 2k] and a byte unlike the next of S, then S
+    itself, so position k of S matches 8 + 2k bytes (ml[p + 1] = ml[p] +
+    2), then random bytes to ``size``.  K as large as fits."""
+    rng = np.random.default_rng(seed)
+    k_max = 1
+    while (k_max + 1) * 9 + (k_max + 1) * k_max + 3 * (k_max + 1) + 8 <= size:
+        k_max += 1
+    s = rng.integers(0, 256, 3 * k_max + 8, dtype=np.uint8).tobytes()
+    parts = [s[k : 3 * k + 8] + bytes([s[3 * k + 8] ^ 0x5A])
+             for k in range(k_max)]
+    blob = b"".join(parts) + s
+    return blob + rng.integers(0, 256, size - len(blob), np.uint8).tobytes()
+
+
+def edge_blocks(seed: int, size: int = 65536) -> dict:
+    """Hostile blocks of up to ``size`` bytes by name: a run, a period-3
+    pattern, random bytes, a lazy chain (``lazy_chain_block``), all-0xFF
+    (the sort key's tie), 1-3 bytes and an empty block."""
+    rng = np.random.default_rng(seed)
+    return {"run": b"\x07" * size,
+            "period 3": (b"abc" * (size // 3 + 1))[:size],
+            "random": rng.integers(0, 256, size, np.uint8).tobytes(),
+            "lazy chain": lazy_chain_block(size, seed),
+            "all 0xff": b"\xff" * size,
+            "1 byte": b"q", "2 bytes": b"qr", "3 bytes": b"qrs", "empty": b""}
+
+
+def wide_block(seed: int) -> bytes:
+    """A block of 2**17 bytes for a ``bmax = 2**17`` row: 4 KiB of
+    random bytes R, text with repeats nearer than 64 KiB, R again 70,096
+    bytes after the first (its copies need copy-4 elements), random
+    bytes, a run."""
+    rng = np.random.default_rng(seed)
+    far = rng.integers(0, 256, 4096, np.uint8).tobytes()
+    text = b"".join(b"the %d-th line of a wide block; " % int(i)
+                    for i in rng.integers(0, 500, 2100))[:66000]
+    rnd = rng.integers(0, 256, 26000, np.uint8).tobytes()
+    return (far + text + far + rnd + b"z" * 40000)[: 1 << 17]
+
+
+def stage_blocks(blocks, bmax: int):
+    """Blocks as a batch (numpy): (block uint8 [B, bmax], n int32 [B])."""
+    arr = np.zeros((len(blocks), bmax), np.uint8)
+    lens = np.zeros(len(blocks), np.int32)
+    for i, b in enumerate(blocks):
+        arr[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    return arr, lens
+
+
+# ---------------------------------------------------------------------
+# the kernel's decomposition on the host (tests only)
+
+
+def candidates_model(blk: np.ndarray, n: int):
+    """The candidate kernel: the positions below npos = n - 3 stably
+    radix-sorted by their 4-byte word in four LSD passes whose digits are
+    the bytes p + k, each pass counted per warp over CAND_WARPS chunks of
+    sorted indices and scattered at digit-major, warp-minor offsets; then
+    the run heads of the sorted order (a head's index carried across the
+    warps' chunks) give each position its nearest and second nearest
+    previous position with the same word and the first (-1: none).
+    Returns (c1, c2, c3) int64 [npos]."""
+    npos = max(0, n - 3)
+    if npos == 0:
+        e = np.zeros(0, np.int64)
+        return e, e, e
+    b = np.zeros(npos + 4, np.int64)
+    b[:npos + 3] = blk[:npos + 3]
+    chunk = (npos + 32 * CAND_WARPS - 1) // (32 * CAND_WARPS) * 32
+    order = np.arange(npos, dtype=np.int64)
+    idx = np.arange(npos, dtype=np.int64)
+    warp = idx // chunk
+    for k in range(4):
+        digit = b[order + k]
+        cnt = np.zeros((CAND_WARPS, 256), np.int64)
+        np.add.at(cnt, (warp, digit), 1)
+        flat = cnt.T.reshape(-1)  # digit-major, warp-minor
+        start = (np.cumsum(flat) - flat).reshape(256, CAND_WARPS).T
+        # each element's rank among the equal digits before it in its warp
+        key = digit * CAND_WARPS + warp
+        srt = np.argsort(key, kind="stable")
+        first = np.searchsorted(key[srt], key[srt], side="left")
+        rank = np.empty(npos, np.int64)
+        rank[srt] = np.arange(npos) - first
+        new = np.empty(npos, np.int64)
+        new[start[warp, digit] + rank] = order
+        order = new
+    word = b[order] | b[order + 1] << 8 | b[order + 2] << 16 | b[order + 3] << 24
+    head = np.ones(npos, bool)
+    head[1:] = word[1:] != word[:-1]
+    # each warp's last head, carried into the later warps' chunks
+    last = [int(np.max(np.where(head[w * chunk : (w + 1) * chunk],
+                                idx[w * chunk : (w + 1) * chunk], -1),
+                       initial=-1)) for w in range(CAND_WARPS)]
+    carry = np.maximum.accumulate([-1] + last[:-1])
+    hidx = np.maximum(np.maximum.accumulate(np.where(head, idx, -1)),
+                      carry[warp])
+    c1 = np.full(npos, -1, np.int64)
+    c2 = np.full(npos, -1, np.int64)
+    c3 = np.full(npos, -1, np.int64)
+    same1 = ~head
+    c1[order[same1]] = order[idx[same1] - 1]
+    same2 = np.zeros(npos, bool)
+    same2[2:] = word[2:] == word[:-2]
+    c2[order[same2]] = order[idx[same2] - 2]
+    c3[order[same1]] = order[hidx[same1]]
+    return c1, c2, c3
+
+
+def _lcp(blk: np.ndarray, q: int, c: int, limit: int, start: int = 4,
+         step: int = LCP_STEP) -> int:
+    """The match length of positions q and c (their first ``start`` bytes
+    equal), at most ``limit``, compared ``step`` bytes at a time."""
+    off = start
+    while off < limit:
+        m = min(step, limit - off)
+        ne = np.flatnonzero(blk[q + off : q + off + m]
+                            != blk[c + off : c + off + m])
+        if len(ne):
+            return off + int(ne[0])
+        off += step
+    return limit
+
+
+def entries_model(blk: np.ndarray, n: int, cands):
+    """The candidate kernel's last step, a thread a position: each
+    candidate's match measured up to CAP bytes; the entry is the best
+    (length, candidate) (the longest, on a tie the nearest), or, where a
+    match reaches CAP short of the block's end, "long": the candidates
+    that reached it, for the walk to measure whole.  Returns (best_len,
+    best_cand, long_cands): int64 [npos], [npos], [npos, 3] (-1 where a
+    candidate did not reach CAP; all -1 where the entry is not long);
+    best_len is 0 where there is no candidate."""
+    npos = len(cands[0])
+    best_len = np.zeros(npos, np.int64)
+    best_cand = np.full(npos, -1, np.int64)
+    long_cands = np.full((npos, 3), -1, np.int64)
+    b = np.zeros(n + CAP + 4, np.int64)
+    b[:n] = blk[:n]
+    j = np.arange(CAP)
+    for lo in range(0, npos, 8192):  # positions a slice, to bound memory
+        q = np.arange(lo, min(npos, lo + 8192))
+        room = n - q
+        lim = np.minimum(room, CAP)
+        lens = []
+        for k in range(3):
+            c = cands[k][q]
+            cc = np.maximum(c, 0)
+            stop = ((b[q[:, None] + j] != b[cc[:, None] + j])
+                    | (j[None, :] >= lim[:, None]))
+            stop[:, :4] = False
+            ln = np.where(stop.any(1), stop.argmax(1), CAP)
+            lens.append(np.where(c >= 0, np.minimum(ln, lim), 0))
+        lens = np.stack(lens, 1)
+        bl = lens.max(1)
+        first = lens.argmax(1)  # the nearest of the longest
+        best_len[q] = bl
+        best_cand[q] = np.stack([cands[k][q] for k in range(3)], 1)[
+            np.arange(len(q)), first]
+        is_long = (bl == CAP) & (room > CAP)
+        keep = is_long[:, None] & (lens == CAP)
+        long_cands[q] = np.where(keep, np.stack([cands[k][q] for k in
+                                                 range(3)], 1), -1)
+    return best_len, best_cand, long_cands
+
+
+def walk_model(blk: np.ndarray, n: int, entries, lazy: bool):
+    """A walk warp: from position 1, the next position with a candidate
+    (128 entries a load), its best candidate (a long entry's candidates
+    measured whole, from CAP on, LCP_STEP bytes a step; the longest, on
+    a tie the later), taken, or for the lazy walk deferred when the next
+    position's match is longer by 2 or more.  Returns the copies [(pos,
+    len, off)]."""
+    best_len, best_cand, long_cands = entries
+    npos = len(best_len)
+
+    def best(q):
+        if q >= npos or best_len[q] == 0:
+            return 0, -1
+        if long_cands[q].max() < 0:
+            return int(best_len[q]), int(best_cand[q])
+        bl, bc = 0, -1
+        for c in long_cands[q]:
+            if c >= 0 and c != bc:
+                ln = _lcp(blk, q, int(c), n - q, start=CAP)
+                if ln > bl or (ln == bl and c > bc):
+                    bl, bc = ln, int(c)
+        return bl, bc
+
+    has = np.flatnonzero(best_len > 0)
+    copies = []
+    p = 1
+    while p < n:
+        i = np.searchsorted(has, p)
+        if i == len(has):
+            break
+        q = int(has[i])
+        ln, c = best(q)
+        if lazy and best(q + 1)[0] > ln + 1:
+            p = q + 1
+            continue
+        copies.append((q, ln, q - c))
+        p = q + ln
+    return copies
+
+
+def copy_cost(off: int, ln: int) -> int:
+    """``encode_np._copy_cost``, and 5 bytes an atom for an offset of
+    65,536 or more (copy-4 atoms)."""
+    if off < COPY4_OFFSET:
+        return _copy_cost(off, ln)
+    atoms = 1 + (ln >= 68) * ((ln - 68) // 64 + 1)
+    return 5 * (atoms + (ln - 64 * (atoms - 1) > 64))
+
+
+def emit_copy(out: bytearray, off: int, ln: int) -> None:
+    """``reference.emit_copy``, whose chopping an offset of 65,536 or
+    more keeps with every atom a copy-4."""
+    if off < COPY4_OFFSET:
+        reference.emit_copy(out, off, ln)
+        return
+    tail = bytearray()
+    reference.emit_copy(tail, 1 << 11, ln)  # copy-2 atoms of the chopping
+    for i in range(0, len(tail), 3):
+        out.append(tail[i] | 3)
+        out += off.to_bytes(4, "little")
+
+
+def prune_model(copies, n: int):
+    """Two simultaneous-drop passes over the warp's copy list: a copy
+    with no copy beside it drops when the merged literal costs no more
+    than the literals around it and the copy."""
+    for _ in range(2):
+        keep = []
+        for k, (pos, ln, off) in enumerate(copies):
+            prev_end = copies[k - 1][0] + copies[k - 1][1] if k else 0
+            nxt = copies[k + 1][0] if k + 1 < len(copies) else n
+            a, bg = pos - prev_end, nxt - pos - ln
+            elig = (not (a == 0 and k > 0)
+                    and not (bg == 0 and k + 1 < len(copies))
+                    and _lit_cost(a + ln + bg)
+                    <= _lit_cost(a) + copy_cost(off, ln) + _lit_cost(bg))
+            if not elig:
+                keep.append((pos, ln, off))
+        copies = keep
+    return copies
+
+
+def shift_model(copies, n: int):
+    """The start shift of each copy (1-3 bytes into its literal where
+    that is cheaper) and the emission's size."""
+    out, total, prev_end = [], 0, 0
+    for pos, ln, off in copies:
+        a0 = pos - prev_end
+        best_d, best = 0, _lit_cost(a0) + copy_cost(off, ln)
+        for d in (1, 2, 3):
+            if ln - d < 4:
+                break
+            cost = _lit_cost(a0 + d) + copy_cost(off, ln - d)
+            if cost < best:
+                best_d, best = d, cost
+        out.append((pos + best_d, ln - best_d, off))
+        total += best
+        prev_end = pos + ln
+    return out, total + _lit_cost(n - prev_end)
+
+
+def emit_model(blk: np.ndarray, n: int, copies) -> bytes:
+    """The emission: per copy its gap literal and chop atoms, then the
+    tail literal (the reference's element encodings)."""
+    out = bytearray()
+    prev_end = 0
+    for pos, ln, off in copies:
+        if pos > prev_end:
+            reference.emit_literal(out, blk[prev_end:pos].tobytes())
+        emit_copy(out, off, ln)
+        prev_end = pos + ln
+    if n > prev_end:
+        reference.emit_literal(out, blk[prev_end:n].tobytes())
+    return bytes(out)
+
+
+def encode_blocks_model(block: np.ndarray, n, bmax: int):
+    """encode_blocks' result computed as the kernel decomposes it: the
+    candidate pass (the sort, then the entries of matches measured up to
+    CAP bytes), the greedy and the lazy walk on exact lengths,
+    prune and shift per walk, the smaller emission (greedy on a tie).
+    Numpy in, numpy out: (comp uint8 [B, emax], comp_len int32 [B], ok
+    bool [B])."""
+    emax = derived_sizes(bmax)[2]
+    nb = block.shape[0]
+    comp = np.zeros((nb, emax), np.uint8)
+    clen = np.zeros(nb, np.int32)
+    ok = np.zeros(nb, bool)
+    for i in range(nb):
+        m = min(max(int(n[i]), 0), bmax)
+        blk = np.asarray(block[i], np.uint8)
+        entries = entries_model(blk, m, candidates_model(blk, m))
+        parses = [shift_model(prune_model(walk_model(blk, m, entries, lazy),
+                                          m), m) for lazy in (False, True)]
+        copies, total = min(parses, key=lambda pt: pt[1])
+        blob = emit_model(blk, m, copies)
+        assert len(blob) == total
+        comp[i, : min(total, emax)] = np.frombuffer(blob[:emax], np.uint8)
+        clen[i], ok[i] = total, total <= emax
+    return comp, clen, ok

@@ -1076,3 +1076,174 @@ def test_no_native_path_on_card(cuda_device, monkeypatch):
     assert arr.cpu().numpy().tobytes() == data
     assert dc.compress_from_device(arr) == want_raw
     assert called == []
+
+
+def _par_plain_raises(monkeypatch):
+    """Make the parallel engines' plain versions (their torch-ops bodies)
+    raise, so a call that reaches them fails."""
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+
+    def raiser(*args, **kwargs):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for mod, name in ((dp, "_decode"), (dp, "decode_blocks_plain"),
+                      (ep, "encode_blocks_plain"), (ep, "_find_matches"),
+                      (ep, "_emit")):
+        monkeypatch.setattr(mod, name, raiser)
+
+
+def _decode_par_rows():
+    """Corpus chunks, the corrupt raw streams of chip_smoke, the fuzz
+    payloads and random garbage, each set as (streams, cmax, out_max)."""
+    from chip_smoke import _bad_streams
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+
+    data = _corpus(31, 1 << 20)
+    rng = np.random.default_rng(31)
+    garbage = [bytes([int(rng.integers(0, 128))]) + rng.integers(
+        0, 256, int(rng.integers(0, 120)), np.uint8).tobytes()
+        for _ in range(96)]
+    # element streams of 2**17-byte blocks with copy-4 elements (the
+    # plain encoder on the host), and one cut short
+    blocks = [ep.wide_block(31), ep.wide_block(32)]
+    comp, clen, _ = ep.encode_blocks_plain(*(torch.from_numpy(a) for a in
+                                             ep.stage_blocks(blocks, 1 << 17)),
+                                           1 << 17)
+    copy4 = [put_uvarint(len(b)) + comp[i, : clen[i]].numpy().tobytes()
+             for i, b in enumerate(blocks)]
+    # long garbage: several 4 KiB chunks of the wide rows' walk a row
+    long_garbage = [bytes([int(rng.integers(0, 128))]) + rng.integers(
+        0, 256, int(rng.integers(0, 20000)), np.uint8).tobytes()
+        for _ in range(32)]
+    return {"corpus": ([native.compress(data[i << 16 : (i + 1) << 16])
+                        for i in range(12)], 66560, 65536),
+            "hostile": (_bad_streams() + dp.edge_streams(), 256, 256),
+            "garbage": (garbage, 256, 1024),
+            "wide rows": ([native.compress(data[:99_999]),
+                           native.compress(b"w" * 99_999)], 1 << 17, 99_999),
+            "copy-4 rows": (copy4 + [copy4[0][:-3]], 1 << 17, 1 << 17),
+            "wide garbage": (long_garbage + [native.compress(data[:100_000])],
+                             65536, 1 << 17)}
+
+
+@pytest.mark.parametrize("name", ["corpus", "hostile", "garbage",
+                                  "wide rows", "copy-4 rows",
+                                  "wide garbage"])
+def test_decode_par_kernel_matches_plain(cuda_device, monkeypatch, name):
+    """csrc/decode_par.cu against decode_par's plain version on the same
+    card tensors: every error code, the bytes of every good row, every
+    row with an error all zero; the plain body made to raise while the
+    kernel runs.  Rows wider than 64 KiB ("wide rows", "copy-4 rows",
+    "wide garbage") take the kernel's chunked walk and pointer path."""
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+
+    streams, cmax, out_max = _decode_par_rows()[name]
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in dp.stream_rows(streams, cmax)]
+    pout, perr = dp.decode_blocks_plain(*args, out_max=out_max)
+    _par_plain_raises(monkeypatch)
+    before = dp.launches
+    out, err = dp.decode_blocks(*args, out_max=out_max)
+    torch.cuda.synchronize()
+    assert dp.launches == before + 1 and out.device == cuda_device
+    assert torch.equal(err, perr)
+    good = perr == 0
+    assert torch.equal(out[good], pout[good])
+    assert not out[~good].any()
+    if name in ("corpus", "wide rows"):
+        assert not err.any()
+    if name == "copy-4 rows":
+        assert err.tolist() == [0, 0, dp.ERR_SIZE_MISMATCH]
+        for i, seed in enumerate((31, 32)):
+            assert out[i].cpu().numpy().tobytes() == ep.wide_block(seed)
+
+
+def test_decode_par_kernel_round_counts(cuda_device):
+    """On the card the round counts must bound nothing: fewer raise
+    ValueError; decode_block_par's scaled counts decode a 1 MiB raw
+    stream in one row."""
+    from snappy_tpu_torch.kernels import decode_par as dp
+
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in dp.stream_rows([native.compress(b"abc" * 99)], 256)]
+    with pytest.raises(ValueError):
+        dp.decode_blocks(*args, out_max=1024, tag_rounds=3)
+    with pytest.raises(ValueError):
+        dp.decode_blocks(*args, out_max=1024, ptr_rounds=9)
+    out, err = dp.decode_blocks(*args, out_max=1024, tag_rounds=7,
+                                ptr_rounds=10)
+    assert int(err[0]) == 0 and out[0, :297].cpu().numpy().tobytes() == \
+        b"abc" * 99
+    data = _corpus(32, 1 << 20)
+    raw = native.compress(data)
+    dlen, hdr = read_uvarint(raw, 0)
+    got = dp.decode_block_par_to_device(raw, dlen, start=hdr,
+                                        device=cuda_device)
+    assert got.device == cuda_device
+    assert got.cpu().numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("bmax", [8192, 65536, 1 << 17])
+def test_encode_par_kernel_matches_plain(cuda_device, monkeypatch, bmax):
+    """csrc/encode_par.cu against encode_par's plain version on the same
+    card tensors: every byte, length and flag, on corpus blocks, the
+    hostile blocks (a run, a period-3 pattern, random bytes, a lazy
+    chain, all-0xFF, 1-3 bytes, empty) and, at 2**17, the wide block
+    (copy-4 elements); the plain body made to raise while the kernels
+    run.  Every row decodes back to its block, on the host and, at
+    2**17, with decode_par's kernel on the card."""
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+    from snappy_tpu_torch.spec import reference
+
+    data = _corpus(33, 1 << 20)
+    blocks = [data[i * bmax : i * bmax + bmax] for i in range(4)]
+    blocks += [data[5 : 5 + bmax // 3], data[:17]]
+    blocks += [b[:bmax] for b in ep.edge_blocks(33).values()]
+    if bmax == 1 << 17:
+        blocks.append(ep.wide_block(33))
+    arr, lens = ep.stage_blocks(blocks, bmax)
+    b, n = (torch.from_numpy(x).to(cuda_device) for x in (arr, lens))
+    want = ep.encode_blocks_plain(b, n, bmax)
+    _par_plain_raises(monkeypatch)
+    before = ep.launches
+    got = ep.encode_blocks(b, n, bmax)
+    torch.cuda.synchronize()
+    assert ep.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.device == cuda_device and torch.equal(g, w)
+    assert bool(want[2].all())
+    comp, clen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    streams = [put_uvarint(len(blk)) + comp[i, : clen[i]].tobytes()
+               for i, blk in enumerate(blocks)]
+    for stream, blk in zip(streams, blocks):
+        assert reference.decompress(stream) == blk
+    if bmax == 1 << 17:
+        rows = dp.stream_rows(streams, ep.derived_sizes(bmax)[2] + 8)
+        out, err = dp.decode_blocks(*(torch.from_numpy(a).to(cuda_device)
+                                      for a in rows), out_max=bmax)
+        assert not err.any()
+        for i, blk in enumerate(blocks):
+            assert out[i, : len(blk)].cpu().numpy().tobytes() == blk
+
+
+def test_par_engines_on_card_reach_no_plain_version(cuda_device,
+                                                    monkeypatch):
+    """SNAPPY_TPU_PALLAS=0 with HOST_PARSE=0: the jnp engines' framed
+    encode and decode on the card run the two kernels and never a
+    plain version; the stream round-trips."""
+    from snappy_tpu_torch.kernels import decode_par as dp
+    from snappy_tpu_torch.kernels import encode_par as ep
+
+    data = _corpus(34, 2 << 20)
+    monkeypatch.setattr(dc, "PALLAS", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", False)
+    _par_plain_raises(monkeypatch)
+    d0, e0 = dp.launches, ep.launches
+    fr = dc.compress_framed(data, device=cuda_device)
+    assert native.decompress_framed(fr) == data
+    assert dc.decompress_framed(fr, device=cuda_device) == data
+    assert dp.launches > d0 and ep.launches > e0

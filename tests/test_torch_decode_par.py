@@ -20,27 +20,9 @@ from snappy_tpu_torch.kernels import decode_par as dp
 from snappy_tpu_torch.spec.format import put_uvarint, read_uvarint
 
 
-def _batch(streams, cmax: int):
-    """(comp, start, comp_len, dst_len) of raw streams; a stream whose
-    preamble does not parse gets start 0 and dst_len 0."""
-    B = len(streams)
-    comp = np.zeros((B, cmax), np.uint8)
-    start = np.zeros(B, np.int32)
-    clen = np.zeros(B, np.int32)
-    dlen = np.zeros(B, np.int32)
-    for i, s in enumerate(streams):
-        comp[i, : len(s)] = np.frombuffer(s, np.uint8)
-        try:
-            d, h = read_uvarint(s, 0)
-        except Exception:
-            d, h = 0, 0
-        start[i], clen[i], dlen[i] = h, len(s), min(d, 1 << 30)
-    return comp, start, clen, dlen
-
-
 def _both(streams, cmax: int, out_max: int):
     """The port's and JAX's (out, err) for one batch, as numpy."""
-    arrs = _batch(streams, cmax)
+    arrs = dp.stream_rows(streams, cmax)
     out, err = dp.decode_blocks(*(torch.from_numpy(a) for a in arrs),
                                 out_max=out_max)
     jout, jerr = decode_jnp.decode_blocks(*arrs, out_max=out_max)

@@ -32,6 +32,7 @@ from snappy_tpu_torch.kernels import encode_flat as ke
 from snappy_tpu_torch.kernels import encode_seq as kes
 from snappy_tpu_torch.kernels.decode_flat import DIRECT_T
 from snappy_tpu_torch.runtime import device_codec as dc
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ("id", "classify", "seq")

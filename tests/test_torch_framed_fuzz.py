@@ -24,6 +24,7 @@ from snappy_tpu.spec.crc32c import crc32c
 from snappy_tpu.spec.format import mask_crc, put_uvarint
 from snappy_tpu_torch import errors as perr
 from snappy_tpu_torch.runtime import device_codec as dc
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ENTRIES = ("decompress_framed", "decompress_framed_to_device")
 HEADER = b"\xff\x06\x00\x00sNaPpY"

@@ -42,6 +42,7 @@ from snappy_tpu_torch.runtime import device_codec as dc
 from snappy_tpu_torch.runtime import stream as tstream
 from snappy_tpu_torch.spec import framing as pframing
 from snappy_tpu_torch.spec import reference as pref
+from torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 # the module, which the package's crc32c function shadows
 pcrc = importlib.import_module("snappy_tpu_torch.spec.crc32c")
