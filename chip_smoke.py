@@ -99,14 +99,24 @@ KERNELS = {
         "replaces": "snappy_tpu/kernels/encode_jnp.py:397",
     },
 }
-# a substring of each kernel's name in the profiler's records (the
-# parallel encoder's two kernels: both, its card time their sum)
+# a substring of each CUDA kernel's name in the profiler's records: each
+# function's row by its name, a function of several kernels (the parallel
+# engines': its card time their means summed) by the tuple of its
+# kernels' keys, and each of those kernels by its own name.  decode_par's
+# rows of at most 64 KiB end in pretagged.cu's executor; its wider rows'
+# pointer kernels are timed by snappy_tpu_torch/bench/walk_profile.py.
+PAR_KERNELS = {
+    "encode_par": ("encode_cands_kernel", "encode_parse_kernel",
+                   "encode_emit_kernel"),
+    "decode_par": ("decode_par_spec_kernel", "decode_par_entry_kernel",
+                   "decode_par_count_kernel", "decode_par_scan_kernel",
+                   "decode_par_emit_kernel", "decode_par_finish_kernel",
+                   "pretagged_kernel")}
 PROFILER_KEYS = {"crc32c_rows": "crc32c_rows", "flat_exec": "flat_exec",
                  "seq_decode": "seq_decode", "seq_encode": "seq_encode",
                  "wavegroup": "wavegroup", "match_cands": "match_kernel",
-                 "decode_pretagged": "pretagged",
-                 "decode_par": "decode_par_kernel",
-                 "encode_par": ("encode_cands_kernel", "encode_parse_kernel")}
+                 "decode_pretagged": "pretagged", **PAR_KERNELS,
+                 **{k: k for ks in PAR_KERNELS.values() for k in ks}}
 SEQ_ROWS = 64  # rows of the seq, wave and match checks and timings before
                # their engines launched at the card's resident rows
 
@@ -1942,13 +1952,16 @@ def par_kernel_checks(card, dev, blk_d, lens_d, dargs, seed: int):
     pattern, random bytes, a lazy chain, all-0xFF, 1-3 bytes, empty;
     ``encode_par.wide_block`` and a 100,000-byte cut of it at bmax
     2**17, whose encodings are decoded back by ``decode_par``'s wide-row
-    path; and one row of the batch's 4 MiB raw stream, timed).  Each
-    kernel timed at the batch (plain, kernel, kernel,
-    plain; events), its card time the mean of its profiler records (the
-    encoder's two kernels' means summed; the fewest records of either),
-    its bound ``kernel_bytes`` over the memory rate; the encoder also at
-    64 rows of each hostile 64 KiB block.  Returns ({name: time row},
-    {name: max_abs_err})."""
+    path; and one row of the batch's 4 MiB raw stream, timed), and on the
+    hand-made cases whose chunked walks do not meet the true walk inside
+    a chunk (``encode_par.resync_blocks`` at bmax 65536 and 2**17,
+    ``decode_par.resync_streams`` into 64 KiB and 2**17-byte rows).  Each
+    function timed at the batch (plain, kernel, kernel, plain; events),
+    its card time the sum of its kernels' profiler record means (the
+    fewest records of any), each kernel's own mean and records logged
+    beside it (``PAR_KERNELS``), its bound ``kernel_bytes`` over the
+    memory rate; the encoder also at 64 rows of each hostile 64 KiB
+    block.  Returns ({name: time row}, {name: max_abs_err})."""
     from snappy_tpu_torch import native
     from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
                                                     kernel_bytes, profiled)
@@ -2009,12 +2022,28 @@ def par_kernel_checks(card, dev, blk_d, lens_d, dargs, seed: int):
     e, rcodes = dec_err(rargs, **rkw)
     errs["decode_par"] = max(errs["decode_par"], e)
     assert not rcodes.any(), "decode_par: the raw stream's row failed"
+    # the hand-made cases whose chunked walks never meet the true walk
+    resync = ep.resync_blocks(seed)
+    for bmax, blocks in ((65536, list(resync.values())),
+                         (1 << 17, [b"".join(resync.values())])):
+        args = [torch.from_numpy(a).to(dev)
+                for a in ep.stage_blocks(blocks, bmax)]
+        errs["encode_par"] = max(errs["encode_par"], enc_err(args, bmax))
+    sargs = [torch.from_numpy(a).to(dev)
+             for a in dp.stream_rows(dp.resync_streams(), 46080)]
+    for out_max in (65536, 1 << 17):
+        e, scodes = dec_err(sargs, out_max)
+        errs["decode_par"] = max(errs["decode_par"], e)
+        assert scodes.tolist() == [0, 0, dp.ERR_OVERRUN_INPUT], scodes
     log(card, f"decode_par, encode_par: max_abs_err {errs} against their "
               f"plain versions on the 64-row batch, {len(codes)} hostile "
               f"decode rows (codes {sorted(set(codes.tolist()))}), the "
               f"hostile encode blocks {sorted(edges)} + 2 rows at bmax "
-              f"2**17, those 2 rows decoded back (out_max 2**17) and one "
-              f"{len(raw)}-byte raw stream row (out_max {raw_max})")
+              f"2**17, those 2 rows decoded back (out_max 2**17), one "
+              f"{len(raw)}-byte raw stream row (out_max {raw_max}), the "
+              f"hand-made blocks {sorted(resync)} (bmax 65536, and joined "
+              f"at 2**17) and {len(dp.resync_streams())} resync streams "
+              f"(out_max 65536 and 2**17)")
     assert errs == {"encode_par": 0, "decode_par": 0}, errs
 
     rows = {}
@@ -2033,6 +2062,13 @@ def par_kernel_checks(card, dev, blk_d, lens_d, dargs, seed: int):
         rows[name] = {"ms": min(k1, k2), "device_ms": recs["kernel_ms_mean"],
                       "records": [recs["kernel_records"], recs["launches"]],
                       "plain_ms": min(p1, p2), "bound_ms": bound, "rows": 64}
+        own = {k: profiled(lambda: kern(*args), 20, PROFILER_KEYS[k])
+               for k in PAR_KERNELS[name]}
+        log(card, f"{name} (main) at [64 rows], each CUDA kernel on the "
+                  f"card (ms: the mean of its profiler records; records of "
+                  f"20 launches): " + json.dumps(
+                      {k: [r["kernel_ms_mean"], r["kernel_records"]]
+                       for k, r in own.items()}))
         log(card, f"{name} (main) at [64 rows, the first 64 corpus chunks]: "
                   f"kernel {k1:.4f}/{k2:.4f} ms a call, "
                   f"{recs['kernel_ms_mean']} ms on the card (the mean of "

@@ -7,6 +7,8 @@ that ``chip_smoke.py`` and the profilers of this folder share.
   their mean: a card time that stays right when the profiler drops
   records, as it does now and then (the sum of every device interval
   over the launches, its ``device_ms_per_call``, then reads low);
+- ``kernel_split``: every kernel a call launches, by name, its records
+  and their mean (what sets the pace of a function of several kernels);
 - ``replay``: CUDA-event and host-clock time of launches run back to back.
 
 Imports torch and the port's kernel modules only inside the functions,
@@ -75,8 +77,9 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     count whole rows, which the functions
     define (zeros after the data).  ``decode_blocks`` and
     ``encode_blocks`` are the jnp engines' batches (``decode_par``,
-    ``encode_par``, each a CUDA kernel: ``csrc/decode_par.cu``, and
-    ``csrc/encode_par.cu``'s two): a decode reads each row's element
+    ``encode_par``: ``csrc/decode_par.cu``'s kernels and the record
+    executor, ``csrc/encode_par.cu``'s three; the bytes are the
+    function's, not the kernels' scratch): a decode reads each row's element
     stream and writes its rows and error codes, an encode reads each
     block and writes its element row (``encode_par.derived_sizes``'
     ``emax`` wide), length and flag.
@@ -172,6 +175,42 @@ def profiled(fn, reps: int, key, tries: int = 3) -> dict:
             "device_ms_per_call": (sum(e.time_range.elapsed_us()
                                        for e in evs) / reps / 1e3
                                    if evs else None)}
+
+
+def kernel_split(fn, reps: int, tries: int = 3) -> dict:
+    """Every kernel a call of ``fn`` launches, by name: the profiler's
+    records of it over ``reps`` calls (after one warm-up call) and their
+    mean milliseconds, ``{name: [records, mean_ms]}``.  A name is the
+    kernel's function name without its namespace and arguments.  A
+    profiled run that recorded no kernel is run again, up to ``tries``
+    runs."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    by_name: dict = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].split("::")[-1]
+            name = name.split()[-1] if name.split() else e.name
+            by_name.setdefault(name, []).append(
+                e.time_range.elapsed_us())
+        if by_name:
+            break
+    return {k: [len(v), statistics.fmean(v) / 1e3]
+            for k, v in sorted(by_name.items())}
 
 
 def replay(launches, reps: int = 3) -> list:

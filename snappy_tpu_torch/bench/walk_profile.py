@@ -1,5 +1,5 @@
-"""Card times of the serial decode walks, for comparing two packages in
-one call.
+"""Card times of the walking kernels, for comparing two packages in one
+call.
 
     python3 snappy_tpu_torch/bench/walk_profile.py [--root DIR] [--reps N]
 
@@ -12,11 +12,22 @@ builds its kernels, and times with CUDA events, back to back, the best of
   ``native.compress`` encodes them;
 * ``decode_par`` (``decode_par.decode_blocks``) at the first 64 of those
   rows, and at one row of the first 64 chunks' 4 MiB raw stream (its
-  wide-row path), where the package has the kernel.
+  wide-row path), where the package has the kernel;
+* ``encode_par`` (``encode_par.encode_blocks``) at the first 64 chunks,
+  the jnp engine's 64-row batch, where the package has the kernels;
+* ``decode_pretagged`` at the 64-row batch of the hybrid engine: the
+  first 64 compressed chunks of those chunks' framed stream, the native
+  parser's records.
+
+Each output of the kernels is checked first (the decoded bytes, the
+encoder's rows against its plain version).  Then each function's
+kernels are profiled apart (``kernel_cost.kernel_split``: every kernel
+of 20 calls by name, its records and their mean milliseconds), which
+says what sets a multi-kernel function's pace.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
-of milliseconds a call.  Run parent, change, change, parent in one
-command to compare two trees on the same card.
+of milliseconds a call and the split.  Run parent, change, change,
+parent in one command to compare two trees on the same card.
 """
 
 from __future__ import annotations
@@ -51,9 +62,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
+    sys.path.insert(1, here)
     import numpy as np
     import torch
 
+    from kernel_cost import kernel_split
     from snappy_tpu_torch import native
     from snappy_tpu_torch.bench.corpus import make_corpus
     from snappy_tpu_torch.kernels import _build
@@ -81,19 +94,27 @@ def main(argv=None) -> int:
     batch = [torch.from_numpy(a).to(dev) for a in (comp, starts, clens, dlens)]
 
     res = {"root": args.root}
+    split = {}
+
+    def timed(name, fn):
+        res[name] = min(_events_ms(fn) for _ in range(args.reps))
+        split[name] = kernel_split(fn, 20)
+
     for n in (64, rows):
         part = [x[:n] for x in batch]
         out, err = kds.decode_blocks_seq(*part, 65536)
         assert not err.any(), "seq_decode failed on the corpus"
-        res[f"seq_decode.{n}"] = min(
-            _events_ms(lambda: kds.decode_blocks_seq(*part, 65536))
-            for _ in range(args.reps))
+        timed(f"seq_decode.{n}", lambda: kds.decode_blocks_seq(*part, 65536))
     lib = _build.lib()
+    blk = torch.from_numpy(np.frombuffer(b"".join(chunks[:64]), np.uint8)
+                           .reshape(64, 65536).copy()).to(dev)
     if hasattr(lib, "snc_decode_par"):
         part = [x[:64] for x in batch]
-        res["decode_par.64"] = min(
-            _events_ms(lambda: dp.decode_blocks(*part, out_max=65536))
-            for _ in range(args.reps))
+        out, err = dp.decode_blocks(*part, out_max=65536)
+        assert not err.any() and torch.equal(out, blk), \
+            "decode_par failed on the corpus"
+        timed("decode_par.64",
+              lambda: dp.decode_blocks(*part, out_max=65536))
     if hasattr(lib, "snc_decode_par_scratch"):
         raw = native.compress(b"".join(chunks[:64]))
         dlen, hdr = read_uvarint(raw, 0)
@@ -108,10 +129,30 @@ def main(argv=None) -> int:
         out, err = dp.decode_blocks(*one, **kw)
         assert int(err[0]) == 0 and out[0].cpu().numpy().tobytes() == \
             b"".join(chunks[:64]), "decode_par's wide row failed"
-        res["decode_par.wide"] = min(
-            _events_ms(lambda: dp.decode_blocks(*one, **kw))
-            for _ in range(args.reps))
+        timed("decode_par.wide", lambda: dp.decode_blocks(*one, **kw))
+    if hasattr(lib, "snc_encode_par"):
+        from snappy_tpu_torch.kernels import encode_par as ep
+
+        lens = torch.full((64,), 65536, dtype=torch.int32, device=dev)
+        got = ep.encode_blocks(blk, lens)
+        want = ep.encode_blocks_plain(blk, lens)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            "encode_par differs from its plain version on the corpus"
+        timed("encode_par.64", lambda: ep.encode_blocks(blk, lens))
+    if hasattr(lib, "snc_pretagged"):
+        from snappy_tpu_torch.kernels import decode_pretagged as kp
+        from snappy_tpu_torch.runtime import device_codec as dc
+
+        fr = native.compress_framed(b"".join(chunks[:128]), threads=4)
+        frames, _ = dc._scan_frames(fr)
+        first = [ch for ch in frames if ch[0] == 0][:64]
+        staged = kp.stage_records([fr[ch[1] : ch[1] + ch[2]] for ch in first],
+                                  [ch[5] for ch in first],
+                                  [ch[4] for ch in first], device=dev)
+        timed("decode_pretagged.64",
+              lambda: kp.decode_blocks_pretagged(*staged))
     print(json.dumps(res), flush=True)
+    print(json.dumps({"split": split}), flush=True)
     return 0
 
 

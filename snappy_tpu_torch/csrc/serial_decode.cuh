@@ -1,5 +1,6 @@
-// The serial Snappy walk that seq_decode.cu and decode_par.cu share: a
-// parser warp and a writer warp a row, several rows an SM.
+// seq_decode.cu's serial Snappy walk: a parser warp and a writer warp a
+// row, several rows an SM.  decode_par.cu's chunked walks share its
+// header decode and chain of tag starts (header_at, follow_chain).
 //
 // * Parser (warp 0), the kernel's own (its error contract): lane i
 //   decodes a header speculatively at s + i of a 32-byte window

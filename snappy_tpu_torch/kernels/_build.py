@@ -152,8 +152,10 @@ def _declare(lib) -> None:
     lib.snc_decode_par_scratch.restype = ctypes.c_int
     lib.snc_decode_par_scratch.argtypes = [i32, i32, i32, p]
     lib.snc_encode_par.restype = ctypes.c_int
-    lib.snc_encode_par.argtypes = [p, i64, i32, p, p, p, p, i32, p, i32, p,
-                                   p, i32, p]
+    lib.snc_encode_par.argtypes = [p, i64, i32, p, p, i32, p, i32, p, p, i32,
+                                   p]
+    lib.snc_encode_par_scratch.restype = ctypes.c_int
+    lib.snc_encode_par_scratch.argtypes = [i32, i32, i32, p]
     lib.snc_error_string.restype = ctypes.c_char_p
     lib.snc_error_string.argtypes = [ctypes.c_int]
 

@@ -12,32 +12,38 @@ the largest code whose condition holds at any tag the walk reaches),
 and the host maps codes to CorruptError.  Lengths, offsets and sums are
 int32 and wrap as JAX's do, so hostile 4-byte fields give JAX's codes.
 
-On a CUDA tensor the wrapper launches ``csrc/decode_par.cu`` (a serial
-walk per row: a parser warp that follows every tag and ORs the per-tag
-conditions, and a writer warp; rows wider than ``IMAGE`` bytes are
-walked a ``CHUNK`` of compressed bytes a warp, their records go to
-device memory, and every output byte's source is resolved by pointer
-jumping over the whole card); on a CPU tensor it runs the plain
-version, ``decode_blocks_plain``: JAX's program in torch ops on the
-tensor's device (speculative tag parse at every byte position -> orbit
-marking by pointer doubling -> one source pointer per output byte ->
-pointer-doubling copy resolution -> one gather; the ``[B]`` axis stands
-in for ``vmap``; gathers clip their indices as the JAX program does,
-and scatters with JAX's ``mode="drop"`` write into one extra slot that
-is cut off; the doubling loops run their full round counts,
-``common_par``).  There is no other switch.  A row with ``err != 0`` is
-all zero from the kernel; its bytes from the plain version are what
-its gather gives (no caller reads them).  The kernel walks the stream
-exactly, so on a CUDA tensor the round counts must bound nothing:
+On a CUDA tensor the wrapper launches ``csrc/decode_par.cu``: every row
+cut into chunks of compressed bytes (``NARROW_CHUNK`` for rows of at most
+``IMAGE`` bytes, ``CHUNK`` for wider ones), a warp a chunk walking
+speculatively, the true walk's entry into each chunk where it meets the
+chunk's walk, the chunks' tags counted and scanned, their records written
+and the per-tag conditions ORed; then rows of at most ``IMAGE`` bytes go
+to ``csrc/pretagged.cu``'s record executor (a CTA a row, copies in groups
+of 32 that wait on their producers) and wider rows to per-byte source
+pointers resolved by pointer jumping over the whole card.  On a CPU
+tensor it runs the plain version, ``decode_blocks_plain``: JAX's program
+in torch ops on the tensor's device (speculative tag parse at every byte
+position -> orbit marking by pointer doubling -> one source pointer per
+output byte -> pointer-doubling copy resolution -> one gather; the
+``[B]`` axis stands in for ``vmap``; gathers clip their indices as the
+JAX program does, and scatters with JAX's ``mode="drop"`` write into one
+extra slot that is cut off; the doubling loops run their full round
+counts, ``common_par``).  There is no other switch.  A row with ``err !=
+0`` is all zero from the kernel; its bytes from the plain version are
+what its gather gives (no caller reads them).  The kernel walks the
+stream exactly, so on a CUDA tensor the round counts must bound nothing:
 ``2**tag_rounds >= ceil(cmax / 2)`` (every tag spans 2 bytes or more)
 and ``2**ptr_rounds >= out_max``, else ValueError.
 
-``decode_rows_model`` is the kernel's decomposition on the host, for
-the tests: 32-byte windows of speculative headers, the chain of starts,
-the per-tag conditions ORed over the walk, the records executed with
-the writer's guards; in a row wider than ``IMAGE`` the chunked walk
+``decode_rows_model`` is the walk's decomposition on the host, for the
+tests: 32-byte windows of speculative headers, the chain of starts, the
+per-tag conditions ORed over the walk, the records executed in order
+with a writer's guards; in a row wider than ``IMAGE`` the chunked walk
 (speculative walks a chunk, the entries, counts and a scan, the
 records) and the per-byte pointers in rounds of jumping.
+``narrow_rows_model`` is the kernel's schedule for rows of at most
+``IMAGE`` bytes: the chunked walk at ``NARROW_CHUNK``, then the record
+executor's rounds (``decode_pretagged.execute_records_model``).
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ from snappy_tpu_torch.kernels.common_par import (
 from snappy_tpu_torch.spec.format import put_uvarint, read_uvarint
 
 __all__ = ["decode_block_par", "decode_blocks", "decode_blocks_plain",
-           "decode_rows_model", "ERR_NONE", "ERR_MESSAGES"]
+           "decode_rows_model", "narrow_rows_model", "ERR_NONE",
+           "ERR_MESSAGES"]
 
 ERR_NONE = 0
 ERR_OVERRUN_INPUT = 1
@@ -75,8 +82,11 @@ ERR_MESSAGES = {
 }
 
 WINDOW = 32  # bytes the kernel's parser warp decodes speculatively at once
-IMAGE = 65536  # widest row the kernel decodes in shared memory
+IMAGE = 65536  # widest row the record executor decodes in shared memory
 CHUNK = 4096  # compressed bytes of a wider row a warp walks at once
+NARROW_CHUNK = 512  # ... of a row of at most IMAGE bytes
+LEAP = 64  # a speculative walk's tag leaving its chunk this far early ...
+RESTARTS = 4  # ... starts the walk again after it, this often at most
 
 # kernel launches made by decode_blocks (one per CUDA call)
 launches = 0
@@ -283,22 +293,20 @@ def decode_blocks(comp, start, comp_len, dst_len, out_max: int = 65536,
     err = torch.empty(nb, dtype=torch.int32, device=dev)
     if nb == 0:
         return out, err
-    # rows wider than IMAGE: scratch for the chunks' walks, the records
-    # and the pointer rounds, as the kernel lays it out
+    # scratch for the chunks' walks and the records (and in rows wider
+    # than IMAGE the pointer rounds), as the kernels lay it out
     lib = _build.lib()
     nbytes = ctypes.c_int64(0)
     _build.check(lib.snc_decode_par_scratch(cmax, out_max, nb,
                                             ctypes.addressof(nbytes)),
                  "decode_par")
-    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
-               if nbytes.value else None)
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.snc_decode_par(
             comp.data_ptr(), comp.stride(0), cmax, start.data_ptr(),
             comp_len.data_ptr(), dst_len.data_ptr(), out.data_ptr(), out_max,
-            err.data_ptr(), nb,
-            None if scratch is None else scratch.data_ptr(), stream)
+            err.data_ptr(), nb, scratch.data_ptr(), stream)
     _build.check(rc, "decode_par")
     launches += 1
     return out, err
@@ -474,11 +482,11 @@ def _row_code(start, clen, dlen, d, flags, last_nxt) -> int:
 
 
 def walk_records(hb: bytes, cmax: int, start: int, clen: int, dlen: int):
-    """The parser warp of a row of at most IMAGE bytes: one walk from
-    clamp(start, 0, cmax) over the positions below lim = min(clen,
-    cmax).  ``hb`` is the row's first lim bytes.  Returns (records,
-    err); a record is (d, ln, a, kind): kind 0 a literal of row bytes
-    [a, a + ln), kind 1 a copy of offset a."""
+    """A row's walk in one piece: one walk from clamp(start, 0, cmax)
+    over the positions below lim = min(clen, cmax).  ``hb`` is the row's
+    first lim bytes.  Returns (records, err); a record is (d, ln, a,
+    kind): kind 0 a literal of row bytes [a, a + ln), kind 1 a copy of
+    offset a."""
     lim = max(0, min(clen, cmax))
     hb = hb[:lim] + bytes(WINDOW + 5)
     records, flags, last_nxt, _, d, _ = _walk_span(
@@ -488,16 +496,21 @@ def walk_records(hb: bytes, cmax: int, start: int, clen: int, dlen: int):
 
 def walk_records_chunked(hb: bytes, cmax: int, start: int, clen: int,
                          dlen: int, chunk: int = CHUNK):
-    """The wide rows' walk, as the kernel splits it over chunks of
-    ``chunk`` bytes from s0 = clamp(start, 0, cmax) to lim:
+    """A row's walk as the kernel splits it over chunks of ``chunk`` bytes
+    (``NARROW_CHUNK`` in a row of at most IMAGE bytes, ``CHUNK`` in a
+    wider one) from s0 = clamp(start, 0, cmax) to lim:
 
       1. a warp a chunk walks speculatively from the chunk's first byte,
          marking the tag starts it visits and keeping its exit (the
-         first position at or past the chunk's end);
-      2. one thread a row finds where the true walk enters each chunk:
+         first position at or past the chunk's end); where a tag leaves
+         the chunk more than LEAP bytes before its end, its marks are
+         dropped and the walk starts again at the next byte, RESTARTS
+         times at most;
+      2. a warp a row finds where the true walk enters each chunk:
          from the previous chunk's exit it steps tag by tag until a
          position the chunk's walk visited (from there the two walks
-         agree: the chunk's exit) or the chunk's end;
+         agree: the chunk's exit) or the chunk's end (a walk that never
+         meets the chunk's stays exact);
       3. a warp a chunk walks again from its entry, counting its tags
          and output bytes; a scan gives each chunk its first record and
          output offset;
@@ -512,7 +525,11 @@ def walk_records_chunked(hb: bytes, cmax: int, start: int, clen: int,
     stops = [min(c + chunk, lim) for c in cuts]
     visited, exits = set(), []
     for c, stop in zip(cuts, stops):  # 1
-        _, _, _, x, _, at = _walk_span(hb, cmax, clen, dlen, c, stop, 0)
+        for again in range(RESTARTS, -1, -1):
+            _, _, _, x, _, at = _walk_span(hb, cmax, clen, dlen, c, stop, 0)
+            if again == 0 or at[-1] + LEAP >= stop:
+                break
+            c = at[-1] + 1
         visited.update(at)
         exits.append(x)
     entries, e = [], s0  # 2
@@ -583,10 +600,11 @@ def resolve_records(records, row: bytes, out: np.ndarray, total: int):
 
 def decode_rows_model(comp: np.ndarray, start, comp_len, dst_len,
                       out_max: int):
-    """decode_blocks' result computed as the kernel decomposes it: per
-    row walk_records then execute_records (rows of at most IMAGE bytes)
-    or walk_records_chunked then resolve_records (wider rows), and a row
-    whose code is not 0 all zero.  Numpy in, numpy out."""
+    """decode_blocks' result computed from the walk: per row walk_records
+    then execute_records, the records in order (rows of at most IMAGE
+    bytes), or the wide rows' kernels, walk_records_chunked then
+    resolve_records; a row whose code is not 0 all zero.  Numpy in, numpy
+    out."""
     nb, cmax = comp.shape
     out = np.zeros((nb, out_max), np.uint8)
     err = np.zeros(nb, np.int32)
@@ -603,3 +621,55 @@ def decode_rows_model(comp: np.ndarray, start, comp_len, dst_len,
         else:
             execute_records(records, row, out[b])
     return out, err
+
+
+def narrow_rows_model(comp: np.ndarray, start, comp_len, dst_len,
+                      out_max: int, chunk: int = NARROW_CHUNK):
+    """decode_blocks' result for rows of at most IMAGE bytes as the kernel
+    schedules it: per row walk_records_chunked at ``chunk``, the records
+    in the record executor's layout (kind, len, source or offset, d) and
+    its rounds (``decode_pretagged.execute_records_model``), a row whose
+    code is not 0 given no records and length 0, so it comes back zero.
+    Numpy in, numpy out: (out uint8 [B, out_max], err int32 [B])."""
+    from snappy_tpu_torch.kernels.decode_pretagged import (
+        execute_records_model)
+
+    if out_max > IMAGE:
+        raise ValueError(f"out_max {out_max} is past IMAGE ({IMAGE})")
+    nb, cmax = comp.shape
+    err = np.zeros(nb, np.int32)
+    t_max = cmax // 2 + 2
+    recs = np.zeros((nb, t_max, 4), np.int32)
+    n_tags = np.zeros(nb, np.int32)
+    lens = np.zeros(nb, np.int32)
+    for b in range(nb):
+        clen = int(comp_len[b])
+        row = comp[b, : max(0, min(clen, cmax))].tobytes()
+        records, err[b] = walk_records_chunked(
+            row, cmax, int(start[b]), clen, int(dst_len[b]), chunk)
+        if err[b] != ERR_NONE:
+            continue
+        n_tags[b], lens[b] = len(records), dst_len[b]
+        if records:
+            recs[b, : len(records)] = [(kind, ln, a, d)
+                                       for d, ln, a, kind in records]
+    out, _ = execute_records_model(comp, recs, n_tags, lens, out_max)
+    return out, err
+
+
+def resync_streams() -> list:
+    """Raw streams whose chunked walk does not meet the true walk inside a
+    chunk: after a 600-byte literal, copy-2 tags whose three bytes each
+    parse as a copy-2 tag ((3 << 2) | 2, then the offset 2 | 2 << 8), so a
+    walk entered off phase reads 3-byte tags that stay off phase to the
+    row's end (a chunk of NARROW_CHUNK or CHUNK bytes starts off phase);
+    one such stream of 1,000 tags and one of 15,000, and the first cut
+    short by a byte (its last tag runs past the stream: code 1)."""
+    rng = np.random.default_rng(5)
+    lit = rng.integers(0, 256, 600, np.uint8).tobytes()
+    head = bytes([61 << 2]) + (len(lit) - 1).to_bytes(2, "little") + lit
+    out = []
+    for n in (1000, 15000):
+        out.append(put_uvarint(len(lit) + 4 * n) + head
+                   + bytes([(3 << 2) | 2, 2, 2]) * n)
+    return out + [out[0][:-1]]

@@ -12,12 +12,15 @@ rows with ok=False are re-encoded on the host.  The emission is
 
 On a CUDA tensor the wrapper launches ``csrc/encode_par.cu``: a
 candidate kernel (a stable radix sort of each block's positions by
-4-byte word, one CTA of 32 warps a block) and a parse-and-emit kernel
-(a greedy and a lazy walk warp a block on exact match lengths, compared
-on demand; prune, shift, the smaller emission).  On a CPU tensor it
-runs the plain version, ``encode_blocks_plain``, JAX's program in torch
-ops with the ``[B]`` batch axis in place of ``vmap``.  There is no other
-switch.  Per block the plain version runs
+4-byte word, a cluster of two CTAs of 32 warps a block), a parse kernel
+(a CTA a block and walk kind, greedy and lazy: speculative walks a chunk
+of ``PARSE_CHUNK`` positions a thread, on exact match lengths compared
+on demand by the warp, the true walk's entry into each chunk where it
+meets a speculative walk, the copy list, prune and shift with the whole
+CTA) and an emission kernel (a CTA a block, the smaller parse).  On a
+CPU tensor it runs the plain version, ``encode_blocks_plain``, JAX's
+program in torch ops with the ``[B]`` batch axis in place of ``vmap``.
+There is no other switch.  Per block the plain version runs
 
   1. match finding: 4-gram words -> stable sort -> candidates {prev1,
      prev2, first occurrence} -> unbounded match length by paired
@@ -43,11 +46,13 @@ the shift and the choice of walk.
 
 ``encode_blocks_model`` is the kernels' decomposition on the host, for
 the tests: the radix passes with their per-warp counts and run heads,
-the walks on exact lengths, prune, shift and emission as the warps run
-them.
+the walks on exact lengths (``walk_model``; ``walk_model_chunked`` the
+parse kernel's chunked form of each walk), prune, shift and emission.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -66,15 +71,16 @@ from snappy_tpu_torch.kernels.encode_np import _copy_cost, _lit_cost
 from snappy_tpu_torch.spec import reference
 
 __all__ = ["encode_blocks", "encode_blocks_plain", "encode_block_par",
-           "encode_blocks_model", "derived_sizes"]
+           "encode_blocks_model", "walk_model_chunked", "derived_sizes"]
 
 _I32MAX = 0x7FFFFFFF
 I32 = torch.int32
 
 COPY4_OFFSET = 1 << 16  # the least offset a copy-2 cannot hold
-CAND_WARPS = 32   # warps of the candidate kernel's CTA (sort chunks)
+CAND_WARPS = 64   # warps of the candidate kernel's cluster (sort chunks)
 CAP = 64          # bytes of a match the candidate kernel measures
 LCP_STEP = 128    # bytes a walk warp compares a step (4 a lane)
+PARSE_CHUNK = 256  # positions a speculative walk of the parse kernel covers
 
 # kernel launches made by encode_blocks (one per CUDA call)
 launches = 0
@@ -493,18 +499,21 @@ def encode_blocks(block: torch.Tensor, n: torch.Tensor, bmax: int = 65536):
     ok = torch.empty(nb, dtype=torch.bool, device=dev)
     if nb == 0:
         return comp, comp_len, ok
-    # scratch: the sort's two order buffers, each position's candidate
-    # entry, and each walk's copies (position, length, offset, pad)
-    order = torch.empty(nb, 2, bmax, dtype=I32, device=dev)
-    cands = torch.empty(nb, bmax, dtype=torch.int64, device=dev)
-    copies = torch.empty(nb, 2, cp_max, 4, dtype=I32, device=dev)
+    # scratch: the sort's order buffers, each position's candidate entry,
+    # the speculative walks' copies and each walk kind's copy lists, as
+    # the kernels lay it out
+    lib = _build.lib()
+    nbytes = ctypes.c_int64(0)
+    _build.check(lib.snc_encode_par_scratch(bmax, cp_max, nb,
+                                            ctypes.addressof(nbytes)),
+                 "encode_par")
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _build.lib().snc_encode_par(
+        rc = lib.snc_encode_par(
             block.data_ptr(), block.stride(0), bmax, n.data_ptr(),
-            order.data_ptr(), cands.data_ptr(), copies.data_ptr(), cp_max,
-            comp.data_ptr(), emax, comp_len.data_ptr(), ok.data_ptr(), nb,
-            stream)
+            scratch.data_ptr(), cp_max, comp.data_ptr(), emax,
+            comp_len.data_ptr(), ok.data_ptr(), nb, stream)
     _build.check(rc, "encode_par")
     launches += 1
     return comp, comp_len, ok
@@ -704,44 +713,175 @@ def entries_model(blk: np.ndarray, n: int, cands):
     return best_len, best_cand, long_cands
 
 
-def walk_model(blk: np.ndarray, n: int, entries, lazy: bool):
-    """A walk warp: from position 1, the next position with a candidate
-    (128 entries a load), its best candidate (a long entry's candidates
-    measured whole, from CAP on, LCP_STEP bytes a step; the longest, on
-    a tie the later), taken, or for the lazy walk deferred when the next
-    position's match is longer by 2 or more.  Returns the copies [(pos,
-    len, off)]."""
+def _walk_steps(blk: np.ndarray, n: int, entries, lazy: bool):
+    """A walk's three moves over the entries: ``nxt(p, lim)``, the first
+    position in [p, lim) with a candidate (else lim); ``step(q)``, the
+    copy (pos, len, off) the walk takes at candidate position q, or None
+    where the lazy walk defers to q + 1; ``opens(q, b)``, whether that
+    step measures a long entry's candidate up to b (a speculative walk of
+    a chunk ending at b then stops: the step depends on bytes past b).  A
+    long entry's candidates are measured whole, from CAP on, LCP_STEP
+    bytes a step; the best is the longest, on a tie the later."""
     best_len, best_cand, long_cands = entries
     npos = len(best_len)
+
+    def lengths(q):
+        return [(_lcp(blk, q, int(c), n - q, start=CAP), int(c))
+                for c in long_cands[q] if c >= 0]
+
+    def is_long(q):
+        return q < npos and best_len[q] > 0 and long_cands[q].max() >= 0
 
     def best(q):
         if q >= npos or best_len[q] == 0:
             return 0, -1
-        if long_cands[q].max() < 0:
+        if not is_long(q):
             return int(best_len[q]), int(best_cand[q])
         bl, bc = 0, -1
-        for c in long_cands[q]:
-            if c >= 0 and c != bc:
-                ln = _lcp(blk, q, int(c), n - q, start=CAP)
-                if ln > bl or (ln == bl and c > bc):
-                    bl, bc = ln, int(c)
+        for ln, c in lengths(q):
+            if ln > bl or (ln == bl and c > bc):
+                bl, bc = ln, c
         return bl, bc
 
     has = np.flatnonzero(best_len > 0)
+
+    def nxt(p, lim):
+        i = np.searchsorted(has, p)
+        return min(int(has[i]), lim) if i < len(has) else lim
+
+    def step(q):
+        ln, c = best(q)
+        if lazy and best(q + 1)[0] > ln + 1:
+            return None
+        return q, ln, q - c
+
+    def opens(q, b):
+        return any(is_long(r) and any(ln >= b - r for ln, _ in lengths(r))
+                   for r in ((q, q + 1) if lazy else (q,)))
+
+    return nxt, step, opens
+
+
+def walk_model(blk: np.ndarray, n: int, entries, lazy: bool):
+    """A walk: from position 1, the next position with a candidate, its
+    best candidate, taken, or for the lazy walk deferred when the next
+    position's match is longer by 2 or more (``_walk_steps``).  Returns
+    the copies [(pos, len, off)]."""
+    nxt, step, _ = _walk_steps(blk, n, entries, lazy)
+    npos = len(entries[0])
     copies = []
     p = 1
     while p < n:
-        i = np.searchsorted(has, p)
-        if i == len(has):
+        q = nxt(p, npos)
+        if q >= npos:
             break
-        q = int(has[i])
-        ln, c = best(q)
-        if lazy and best(q + 1)[0] > ln + 1:
+        c = step(q)
+        if c is None:
             p = q + 1
             continue
-        copies.append((q, ln, q - c))
-        p = q + ln
+        copies.append(c)
+        p = q + c[1]
     return copies
+
+
+def walk_model_chunked(blk: np.ndarray, n: int, entries, lazy: bool,
+                       chunk: int = PARSE_CHUNK, meets: list | None = None):
+    """One walk as the parse kernel splits it over chunks of ``chunk``
+    positions (the chunk k: [k * chunk, (k + 1) * chunk) cut at npos):
+
+      1. a speculative walk a chunk, from its first position (1 for chunk
+         0): every state it stands on marked (the positions from each
+         state to the next candidate), its copies kept, and its exit, the
+         first state at or past the chunk's end; it measures no match past
+         the chunk's end, so where a step would (``opens``) it stops open
+         at that state, its exit unknown;
+      2. the true entries in chunk order: from the previous chunk's true
+         exit (1 for chunk 0) the true walk steps until it stands on a
+         marked state of the chunk, where it meets the speculative walk:
+         from there the two are one walk, and the chunk's exit is the
+         speculative walk's (where that stopped open, the true walk walks
+         on from the open state to the chunk's end: the tail); a walk
+         that meets no marked state steps to the chunk's end itself.
+         Each chunk's walk from the previous chunk's speculative exit (its
+         link) is taken first, all chunks at once (none after an open
+         chunk); the true walk takes a chunk's link where it arrives at
+         that exit, and walks the chunk itself elsewhere;
+      3. the copy list: per chunk the true walk's own copies, the
+         speculative copies from the meeting state on, the tail.
+
+    Returns walk_model's copies.  ``meets``, if given, gets for each
+    chunk the true walk stands in the state where the walks met, or None
+    where they never met (the true walk walked the chunk itself)."""
+    nxt, step, opens = _walk_steps(blk, n, entries, lazy)
+    npos = len(entries[0])
+    nck = -(-npos // chunk)
+
+    def walk(p, k, marks=None):
+        """A true walk from p through chunk k, until a state of marks:
+        (its copies, the state where it met them or None, the exit)."""
+        b = min((k + 1) * chunk, npos)
+        own = []
+        while p < b:
+            if marks is not None and p in marks:
+                return own, p, None
+            q = nxt(p, b)
+            if q != p:
+                p = q
+                continue
+            c = step(q)
+            if c is None:
+                p = q + 1
+                continue
+            own.append(c)
+            p = q + c[1]
+        return own, None, p
+
+    spec = []
+    for k in range(nck):  # 1
+        b = min((k + 1) * chunk, npos)
+        p = 1 if k == 0 else k * chunk
+        copies, states, open_ = [], set(), None
+        while p < b:
+            q = nxt(p, b)
+            states.update(range(p, min(q, b - 1) + 1))
+            if q >= b:
+                p = q
+                break
+            if opens(q, b):
+                open_, p = q, None
+                break
+            c = step(q)
+            if c is None:
+                p = q + 1
+                continue
+            copies.append(c)
+            p = q + c[1]
+        spec.append((copies, states, p, open_))
+
+    def meet(p, k):
+        """The true walk from p into chunk k to its meeting with the
+        speculative walk (exit None where that walk stopped open)."""
+        own, met, x = walk(p, k, spec[k][1])
+        return own, met, spec[k][2] if met is not None else x
+
+    starts = ([1] + [x for _, _, x, _ in spec])[:nck]
+    links = [meet(e0, k) if e0 is not None else None  # 2
+             for k, e0 in enumerate(starts)]
+    out, e = [], 1
+    for k in range(nck):
+        entered = e < min((k + 1) * chunk, npos)
+        own, met, x = (links[k] if links[k] is not None and e == starts[k]
+                       else meet(e, k))
+        out += own  # 3
+        if met is not None:
+            out += [c for c in spec[k][0] if c[0] >= met]
+            if spec[k][3] is not None:
+                tail, _, x = walk(spec[k][3], k)
+                out += tail
+        e = x
+        if meets is not None and entered:
+            meets.append(met)
+    return out
 
 
 def copy_cost(off: int, ln: int) -> int:
@@ -844,3 +984,63 @@ def encode_blocks_model(block: np.ndarray, n, bmax: int):
         comp[i, : min(total, emax)] = np.frombuffer(blob[:emax], np.uint8)
         clen[i], ok[i] = total, total <= emax
     return comp, clen, ok
+
+
+def _four_byte_matches(rng, head: bytes, size: int) -> bytearray:
+    """``head`` then bytes over the alphabet 0-3 to ``size``, each chosen
+    so that no position's candidates (the nearest, the second nearest and
+    the first earlier position with its word) match it past 4 bytes."""
+    out = bytearray(head)
+    seen: dict = {}
+    for p in range(len(out) - 4):
+        seen.setdefault(bytes(out[p : p + 4]), []).append(p)
+    for i in range(len(out), size):
+        p = i - 4
+        forbid = set()
+        if p >= 0:
+            w = bytes(out[p:i])
+            at = seen.setdefault(w, [])
+            forbid = {out[c + 4] for c in {at[0], *at[-2:]}} if at else set()
+            at.append(p)
+        out.append(int(rng.choice([x for x in range(4) if x not in forbid])))
+    return out
+
+
+def _de_bruijn4() -> bytes:
+    """Every word of 4 bytes over the alphabet 0-3 once: 259 bytes."""
+    seq, a = [], [0] * 5
+
+    def db(t, p):
+        if t > 4:
+            if 4 % p == 0:
+                seq.extend(a[1 : p + 1])
+            return
+        a[t] = a[t - p]
+        db(t + 1, p)
+        for j in range(a[t - p] + 1, 4):
+            a[t] = j
+            db(t + 1, t)
+
+    db(1, 1)
+    return bytes(seq + seq[:3])
+
+
+def resync_blocks(seed: int, size: int = 65536) -> dict:
+    """Hand-made blocks whose walks do not meet inside a chunk, by name.
+    "4-byte matches off phase": one byte, every word of 4 bytes over 4
+    values once, then bytes over those values chosen so that every
+    position's candidates match it exactly 4 bytes: each walk takes copies
+    of 4 and keeps its phase mod 4, the true walk at phase 1 from position
+    257, every chunk's speculative walk at phase 0 from its first
+    position, so none meets the true walk; "crossing match": the same with
+    2,600 random bytes at 1/8 of the block, repeated from 1,024 k + 902
+    (k = size // 3072): one copy across two chunk ends of 1 KiB (ten of
+    PARSE_CHUNK) that ends at phase 2.  ``size`` at least 4,096."""
+    rng = np.random.default_rng(seed)
+    head = b"\x09" + _de_bruijn4()
+    off = bytes(_four_byte_matches(rng, head, size))
+    far = rng.integers(0, 256, 2600, np.uint8).tobytes()
+    cross = _four_byte_matches(rng, head, size // 8) + far
+    cross = _four_byte_matches(rng, cross, size // 3072 * 1024 + 902) + far
+    cross = _four_byte_matches(rng, cross, size)
+    return {"4-byte matches off phase": off, "crossing match": bytes(cross)}

@@ -1125,18 +1125,23 @@ def _decode_par_rows():
                            native.compress(b"w" * 99_999)], 1 << 17, 99_999),
             "copy-4 rows": (copy4 + [copy4[0][:-3]], 1 << 17, 1 << 17),
             "wide garbage": (long_garbage + [native.compress(data[:100_000])],
-                             65536, 1 << 17)}
+                             65536, 1 << 17),
+            "resync": (dp.resync_streams(), 46080, 65536),
+            "resync wide": (dp.resync_streams(), 46080, 1 << 17)}
 
 
 @pytest.mark.parametrize("name", ["corpus", "hostile", "garbage",
                                   "wide rows", "copy-4 rows",
-                                  "wide garbage"])
+                                  "wide garbage", "resync", "resync wide"])
 def test_decode_par_kernel_matches_plain(cuda_device, monkeypatch, name):
     """csrc/decode_par.cu against decode_par's plain version on the same
     card tensors: every error code, the bytes of every good row, every
     row with an error all zero; the plain body made to raise while the
-    kernel runs.  Rows wider than 64 KiB ("wide rows", "copy-4 rows",
-    "wide garbage") take the kernel's chunked walk and pointer path."""
+    kernel runs.  Rows of at most 64 KiB take the chunked walk and the
+    record executor, wider rows ("wide rows", "copy-4 rows", "wide
+    garbage", "resync wide") the chunked walk and the pointer path;
+    "resync" rows are walked in chunks that the true walk enters off
+    phase and never meets (``decode_par.resync_streams``)."""
     from snappy_tpu_torch.kernels import decode_par as dp
     from snappy_tpu_torch.kernels import encode_par as ep
 
@@ -1155,6 +1160,8 @@ def test_decode_par_kernel_matches_plain(cuda_device, monkeypatch, name):
     assert not out[~good].any()
     if name in ("corpus", "wide rows"):
         assert not err.any()
+    if name.startswith("resync"):
+        assert err.tolist() == [0, 0, dp.ERR_OVERRUN_INPUT]
     if name == "copy-4 rows":
         assert err.tolist() == [0, 0, dp.ERR_SIZE_MISMATCH]
         for i, seed in enumerate((31, 32)):
@@ -1228,6 +1235,34 @@ def test_encode_par_kernel_matches_plain(cuda_device, monkeypatch, bmax):
         assert not err.any()
         for i, blk in enumerate(blocks):
             assert out[i, : len(blk)].cpu().numpy().tobytes() == blk
+
+
+@pytest.mark.parametrize("bmax", [65536, 1 << 17])
+def test_encode_par_kernel_resync_blocks(cuda_device, monkeypatch, bmax):
+    """csrc/encode_par.cu against its plain version on the hand-made
+    blocks whose walks do not meet inside a chunk
+    (``encode_par.resync_blocks``: every copy 4 bytes with the true walk
+    off the chunks' phase, and a copy across two chunk ends), each
+    alone and all at once: the same bytes, lengths and flags, and every
+    row decodes back."""
+    from snappy_tpu_torch.kernels import encode_par as ep
+    from snappy_tpu_torch.spec import reference
+
+    blocks = list(ep.resync_blocks(35, 65536).values())
+    if bmax == 1 << 17:
+        blocks.append(b"".join(blocks))
+    arr, lens = ep.stage_blocks(blocks, bmax)
+    b, n = (torch.from_numpy(x).to(cuda_device) for x in (arr, lens))
+    want = ep.encode_blocks_plain(b, n, bmax)
+    _par_plain_raises(monkeypatch)
+    got = ep.encode_blocks(b, n, bmax)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    comp, clen = got[0].cpu().numpy(), got[1].cpu().numpy()
+    for i, blk in enumerate(blocks):
+        assert reference.decode_block(comp[i, : clen[i]].tobytes(),
+                                      len(blk)) == blk
 
 
 def test_par_engines_on_card_reach_no_plain_version(cuda_device,

@@ -298,3 +298,110 @@ def test_chunked_walk_is_the_walk(chunk):
             want = dp.walk_records(row, 8192, st, cl, int(dlen[b]))
             assert dp.walk_records_chunked(row, 8192, st, cl, int(dlen[b]),
                                            chunk) == want
+
+
+def _walk_blocks() -> dict:
+    """The blocks the chunked parse is held on: corpus chunks, every
+    edge_blocks entry (the lazy chain among them), wide_block and the
+    hand-made blocks whose walks do not meet inside a chunk."""
+    chunks = _chunks(20260820, [16384, 9000, 4096])
+    blocks = {f"corpus {i}": c for i, c in enumerate(chunks)}
+    blocks.update(ep.edge_blocks(20260816, 16384))
+    blocks["wide block"] = ep.wide_block(20260816)
+    blocks.update(ep.resync_blocks(20260816, 16384))
+    return blocks
+
+
+@pytest.mark.parametrize("chunk", [64, 1024, ep.PARSE_CHUNK])
+def test_chunked_parse_is_the_walk(chunk):
+    """walk_model_chunked (the parse kernel's speculative walks, true
+    entries and copy list) gives walk_model's copies, greedy and lazy,
+    on every block of _walk_blocks; on the hand-made blocks the true walk
+    walks chunks itself, meeting no speculative walk there."""
+    alone = {}
+    for name, b in _walk_blocks().items():
+        blk = np.frombuffer(b, np.uint8)
+        entries = ep.entries_model(blk, len(blk),
+                                   ep.candidates_model(blk, len(blk)))
+        for lazy in (False, True):
+            meets = []
+            assert ep.walk_model_chunked(blk, len(blk), entries, lazy, chunk,
+                                         meets) == \
+                ep.walk_model(blk, len(blk), entries, lazy), (name, lazy)
+            alone[name, lazy] = sum(m is None for m in meets)
+    for name in ep.resync_blocks(0, 4096):
+        assert alone[name, False] > 0 and alone[name, True] > 0, name
+
+
+def test_resync_blocks_take_four_byte_copies():
+    """The off-phase block is what its name says: every copy of both
+    walks is 4 bytes, the first at position 257 (phase 1, every chunk's
+    first position phase 0); the crossing block holds a copy of 2,600
+    bytes or more across two chunk ends of PARSE_CHUNK."""
+    blocks = ep.resync_blocks(20260816, 16384)
+    for name, b in blocks.items():
+        blk = np.frombuffer(b, np.uint8)
+        entries = ep.entries_model(blk, len(blk),
+                                   ep.candidates_model(blk, len(blk)))
+        copies = ep.walk_model(blk, len(blk), entries, False)
+        if name == "4-byte matches off phase":
+            assert copies[0][0] == 257
+            assert {ln for _, ln, _ in copies} == {4}
+        else:
+            pos, ln, _ = max(copies, key=lambda c: c[1])
+            assert ln >= 2600 and (pos + ln) // ep.PARSE_CHUNK \
+                - pos // ep.PARSE_CHUNK >= 2 and (pos + ln) % 4 == 2
+
+
+@pytest.mark.parametrize("rows", ["corpus", "hostile", "resync"])
+def test_narrow_model_is_the_row_model(rows):
+    """narrow_rows_model (the chunked walk at NARROW_CHUNK, then the
+    record executor's rounds) gives decode_rows_model's codes and bytes
+    and the plain version's, on corpus rows, the hostile rows (the fuzz
+    payloads among them) and the streams whose chunked walks do not meet
+    (resync_streams)."""
+    if rows == "corpus":
+        chunks = _chunks(20260821, [4096, 16384, 9000, 65536])
+        streams, cmax = [reference.compress(c) for c in chunks], 66560
+    elif rows == "hostile":
+        streams, cmax = _hostile_rows(), 256
+    else:
+        streams, cmax = dp.resync_streams(), 46080
+    arrs = dp.stream_rows(streams, cmax)
+    mo, me = dp.decode_rows_model(*arrs, 65536)
+    no, ne = dp.narrow_rows_model(*arrs, 65536)
+    po, pe = dp.decode_blocks(*(torch.from_numpy(a) for a in arrs),
+                              out_max=65536)
+    np.testing.assert_array_equal(ne, me)
+    np.testing.assert_array_equal(ne, pe.numpy())
+    good = me == 0
+    np.testing.assert_array_equal(no[good], mo[good])
+    np.testing.assert_array_equal(no[good], po.numpy()[good])
+    assert not no[~good].any()
+    if rows != "hostile":
+        assert me.tolist() == [0] * (len(streams) - (rows == "resync")) \
+            + [dp.ERR_OVERRUN_INPUT] * (rows == "resync")
+
+
+@pytest.mark.parametrize("chunk", [dp.NARROW_CHUNK, dp.CHUNK])
+def test_resync_streams_walk_chunks_alone(chunk):
+    """In resync_streams the true walk enters chunks off phase and meets
+    no tag start of the chunk's speculative walk there, and the chunked
+    walk still gives the single walk's records and code."""
+    comp, start, clen, dlen = dp.stream_rows(dp.resync_streams(), 46080)
+    alone = 0
+    for b in range(comp.shape[0]):
+        row = comp[b, : clen[b]].tobytes()
+        args = (46080, int(start[b]), int(clen[b]), int(dlen[b]))
+        assert dp.walk_records_chunked(row, *args, chunk) == \
+            dp.walk_records(row, *args)
+        padded = row + bytes(dp.WINDOW + 5)
+        true = set(dp._walk_span(padded, 46080, int(clen[b]), int(dlen[b]),
+                                 int(start[b]), int(clen[b]), 0)[5])
+        for c in range(int(start[b]), int(clen[b]), chunk):
+            stop = min(c + chunk, int(clen[b]))
+            spec = dp._walk_span(padded, 46080, int(clen[b]), int(dlen[b]),
+                                 c, stop, 0)[5]
+            mine = {t for t in true if c <= t < stop}
+            alone += bool(mine) and not mine & set(spec)
+    assert alone >= 2
