@@ -75,11 +75,26 @@ The only host decodes are the reference's per-chunk format fallbacks
 (a plan over its caps, a payload wider than ``_DECODE_CMAX``, a copy
 offset past 64 KiB); ``HOST_FALLBACKS`` counts them.  ``ENCODE_REPLACED``
 counts the jnp encoder's rows replaced by the reference element.
+
+Spans and counters: while a ``torch.profiler`` session records, each
+entry point is a host span ``snappy.<name>`` (``utils.trace.span``) and
+its phases are spans nested in it: ``snappy.scan`` (the header walk),
+``snappy.alloc`` (host sets and outputs), ``snappy.stage`` (filling a
+batch's pinned set), ``snappy.native`` (a threaded native call),
+``snappy.enqueue`` (a batch's copies and launches), ``snappy.wait``
+(blocked on a batch's event) and ``snappy.finish`` (the checks and the
+assembly after it).  The id and seq engines' framed paths have every
+phase; the others ``snappy.alloc`` and ``snappy.wait``, through the
+shared helpers.  ``COUNTERS`` counts, always, the bytes the calls were
+asked for and the bytes they copied each way, and the native calls'
+wall and process CPU time.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+import time
 
 import numpy as np
 import torch
@@ -128,6 +143,7 @@ from snappy_tpu_torch.kernels.decode_pretagged import (
 from snappy_tpu_torch.kernels.decode_seq import ERR_MESSAGES, decode_blocks_seq
 from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
 from snappy_tpu_torch.spec import reference as _reference
+from snappy_tpu_torch.utils.trace import span
 
 # Chunks per device batch; the same variable as the JAX package's.
 BATCH = int(os.environ.get("SNAPPY_TPU_BATCH", "64"))
@@ -160,6 +176,37 @@ _T_CAP = _DECODE_CMAX // 2 + 2
 HOST_FALLBACKS = {"plan_overflow": 0, "oversize_payload": 0, "far_offset": 0}
 # jnp encode rows that took the reference element, by cause
 ENCODE_REPLACED = {"not_ok": 0, "ratio_guard": 0}
+# the uncompressed bytes of the entry points' calls; the bytes of the
+# batches copied up (``_upload``, ``_upload_bytes``) and back (``_fetch``,
+# ``_fetch_rows``), the native-off host CRCs' copies aside; wall and
+# process CPU nanoseconds of the threaded native calls (``_native_call``),
+# whose ratio over the threads is their busy share
+COUNTERS = {"bytes": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+            "native_wall_ns": 0, "native_cpu_ns": 0}
+
+
+def _entry(fn):
+    """A public entry point, run inside its root span ``snappy.<name>``."""
+    name = f"snappy.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        with span(name):
+            return fn(*args, **kwargs)
+
+    return entry
+
+
+def _native_call(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, a threaded native function, inside
+    ``snappy.native``, its wall and process CPU time counted.  Callers
+    pass ``native.<fn>`` looked up at the call."""
+    t0, c0 = time.perf_counter_ns(), time.process_time_ns()
+    with span("snappy.native"):
+        out = fn(*args, **kwargs)
+    COUNTERS["native_wall_ns"] += time.perf_counter_ns() - t0
+    COUNTERS["native_cpu_ns"] += time.process_time_ns() - c0
+    return out
 
 
 def _native():
@@ -238,12 +285,23 @@ class _HostSet:
 
     def wait(self) -> None:
         if self._event is not None:
-            self._event.synchronize()
+            with span("snappy.wait"):
+                self._event.synchronize()
             self._event = None
 
 
 def _host_sets(device: torch.device, **shapes) -> list[_HostSet]:
-    return [_HostSet(device, shapes) for _ in range(_NSETS)]
+    with span("snappy.alloc"):
+        return [_HostSet(device, shapes) for _ in range(_NSETS)]
+
+
+def _release(sets: list[_HostSet]) -> None:
+    """Give a call's pinned sets back, inside ``snappy.alloc``, once
+    every batch that used them has been waited for: their frees are
+    then counted as the call's allocation work, not left to its return."""
+    with span("snappy.alloc"):
+        for hs in sets:
+            hs.t = hs.np = None
 
 
 def _one_behind(items, dispatch):
@@ -266,11 +324,19 @@ def _upload(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     """Asynchronous copy of a (pinned) host tensor to a new device tensor."""
     dev = torch.empty(host.shape, dtype=host.dtype, device=device)
     dev.copy_(host, non_blocking=True)
+    COUNTERS["h2d_bytes"] += host.numel() * host.element_size()
     return dev
 
 
 def _upload_bytes(data: bytes, device: torch.device) -> torch.Tensor:
+    COUNTERS["h2d_bytes"] += len(data)
     return torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
+
+
+def _fetch(host: torch.Tensor, dev: torch.Tensor) -> None:
+    """Asynchronous copy of a device tensor into a (pinned) host tensor."""
+    host.copy_(dev, non_blocking=True)
+    COUNTERS["d2h_bytes"] += host.numel() * host.element_size()
 
 
 def _crc_into(hs: _HostSet, rows: torch.Tensor, device) -> None:
@@ -278,7 +344,7 @@ def _crc_into(hs: _HostSet, rows: torch.Tensor, device) -> None:
     ``lens`` buffer; the values land in its pinned ``crc`` buffer."""
     n = rows.shape[0]
     crc = crc32c_chunks(rows, _upload(hs.t["lens"][:n], device))
-    hs.t["crc"][:n].copy_(crc, non_blocking=True)
+    _fetch(hs.t["crc"][:n], crc)
 
 
 def _check_crcs(grp_chunks, crc_h: np.ndarray, skip=()) -> None:
@@ -396,9 +462,12 @@ def _batch_arrays(chunks, grp):
                  for f in (1, 2, 5, 4))
 
 
+@_entry
 def decompress_framed(data: bytes, verify_checksums: bool = True,
                       device=None) -> bytes:
-    chunks, total = _scan_frames(data)
+    with span("snappy.scan"):
+        chunks, total = _scan_frames(data)
+    COUNTERS["bytes"] += total
     out = np.empty(max(1, total), dtype=np.uint8)
     src_arr = np.frombuffer(data, dtype=np.uint8)
     dst_offs = []
@@ -474,11 +543,14 @@ def _dispatch_id(src_arr, grp_chunks, hs: _HostSet, device,
     launch its CRC when asked; returns the device panel."""
     ng = len(grp_chunks)
     hs.wait()
-    stage_id_rows(src_arr, grp_chunks, hs.np["panel"][:ng], hs.np["lens"][:ng])
-    panel = _upload(hs.t["panel"][:ng], device)
-    if with_crc:
-        _crc_into(hs, panel[:, :_CRC_CHUNK], device)
-    hs.record()
+    with span("snappy.stage"):
+        stage_id_rows(src_arr, grp_chunks, hs.np["panel"][:ng],
+                      hs.np["lens"][:ng])
+    with span("snappy.enqueue"):
+        panel = _upload(hs.t["panel"][:ng], device)
+        if with_crc:
+            _crc_into(hs, panel[:, :_CRC_CHUNK], device)
+        hs.record()
     return panel
 
 
@@ -498,12 +570,13 @@ def _decode_id_batches(src_arr, chunks, comp_idx, dst_offs, out,
 
     for grp, hs in _one_behind(range(0, len(comp_idx), BATCH), dispatch):
         hs.wait()
-        if use_dev_crc:
-            _check_crcs([chunks[i] for i in grp], hs.np["crc"])
-        panel = hs.np["panel"]
-        for row, i in enumerate(grp):
-            d = chunks[i][4]
-            out[dst_offs[i] : dst_offs[i] + d] = panel[row, :d]
+        with span("snappy.finish"):
+            if use_dev_crc:
+                _check_crcs([chunks[i] for i in grp], hs.np["crc"])
+            panel = hs.np["panel"]
+            for row, i in enumerate(grp):
+                d = chunks[i][4]
+                out[dst_offs[i] : dst_offs[i] + d] = panel[row, :d]
 
 
 def _flat_dec_sets(device, rows: int, rb: int, out_width: int):
@@ -577,7 +650,7 @@ def _decode_classify_batches(src_arr, chunks, comp_idx, dst_offs, out,
                                  dst_max=MAX_CHUNK_UNCOMPRESSED)
         if use_dev_crc:
             _crc_into(hs, res, device)
-        hs.t["res"][:ng].copy_(res, non_blocking=True)
+        _fetch(hs.t["res"][:ng], res)
         hs.record()
         return grp, hs, host_rows
 
@@ -624,31 +697,33 @@ def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
     the device.  Returns the device rows [len(grp), 64 KiB]."""
     ng = len(grp)
     hs.wait()
-    cmax = _bucket_cmax(max(ch[2] for ch in grp))
-    # bytes past a payload's end are left as they are: the decoder's
-    # result does not depend on them
-    rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
-    meta = hs.np["meta"][: 4 * ng].reshape(4, ng)
-    for row, (ctype, p_off, p_len, _crc, dst_len, hdr) in enumerate(grp):
-        rows[row, :p_len] = src_arr[p_off : p_off + p_len]
-        if ctype == CHUNK_COMPRESSED:
-            meta[:, row] = (hdr, p_len, dst_len, dst_len)
-        else:
-            meta[:, row] = (0, 0, 0, dst_len)
-    comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
-    meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
-    dec, err = _ROW_DECODERS[engine][0](comp, meta_d[0], meta_d[1], meta_d[2],
-                                        out_max=MAX_CHUNK_UNCOMPRESSED)
-    for row, ch in enumerate(grp):
-        if ch[0] != CHUNK_COMPRESSED:
-            dec[row, : ch[2]].copy_(comp[row, : ch[2]])
-    if with_crc:
-        hs.t["crc"][:ng].copy_(crc32c_chunks(dec, meta_d[3]),
-                               non_blocking=True)
-    hs.t["err"][:ng].copy_(err, non_blocking=True)
-    if host_out:
-        hs.t["res"][:ng].copy_(dec, non_blocking=True)
-    hs.record()
+    with span("snappy.stage"):
+        cmax = _bucket_cmax(max(ch[2] for ch in grp))
+        # bytes past a payload's end are left as they are: the decoder's
+        # result does not depend on them
+        rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
+        meta = hs.np["meta"][: 4 * ng].reshape(4, ng)
+        for row, (ctype, p_off, p_len, _crc, dst_len, hdr) in enumerate(grp):
+            rows[row, :p_len] = src_arr[p_off : p_off + p_len]
+            if ctype == CHUNK_COMPRESSED:
+                meta[:, row] = (hdr, p_len, dst_len, dst_len)
+            else:
+                meta[:, row] = (0, 0, 0, dst_len)
+    with span("snappy.enqueue"):
+        comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
+        meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
+        dec, err = _ROW_DECODERS[engine][0](comp, meta_d[0], meta_d[1],
+                                            meta_d[2],
+                                            out_max=MAX_CHUNK_UNCOMPRESSED)
+        for row, ch in enumerate(grp):
+            if ch[0] != CHUNK_COMPRESSED:
+                dec[row, : ch[2]].copy_(comp[row, : ch[2]])
+        if with_crc:
+            _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
+        _fetch(hs.t["err"][:ng], err)
+        if host_out:
+            _fetch(hs.t["res"][:ng], dec)
+        hs.record()
     return dec
 
 
@@ -684,11 +759,12 @@ def _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
 
     for idx, grp, hs in _one_behind(range(0, len(comp_idx), step), dispatch):
         hs.wait()
-        _check_seq(grp, hs, use_dev_crc, engine)
-        res = hs.np["res"]
-        for row, i in enumerate(idx):
-            d = chunks[i][4]
-            out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
+        with span("snappy.finish"):
+            _check_seq(grp, hs, use_dev_crc, engine)
+            res = hs.np["res"]
+            for row, i in enumerate(idx):
+                d = chunks[i][4]
+                out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
 
 
 def _hybrid_sets(device, rows: int, host_out: bool):
@@ -754,10 +830,9 @@ def _dispatch_hybrid(src_arr, grp, hs: _HostSet, device, with_crc: bool,
         if ch[0] != CHUNK_COMPRESSED:
             dec[row, : ch[2]].copy_(comp[row, : ch[2]])
     if with_crc:
-        hs.t["crc"][:ng].copy_(crc32c_chunks(dec, meta_d[2]),
-                               non_blocking=True)
+        _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[2]))
     if host_out:
-        hs.t["res"][:ng].copy_(dec, non_blocking=True)
+        _fetch(hs.t["res"][:ng], dec)
     hs.record()
     return dec
 
@@ -808,7 +883,6 @@ def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
             _host_decode_chunk(src_arr, grp[row], b_u8[row], 0)
             b_u8[row, grp[row][4]:] = 0
         return
-    nat = native
     r = 0
     while r < len(comp_rows):
         r2 = r
@@ -818,7 +892,8 @@ def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
         rows = comp_rows[r : r2 + 1]
         offs64, lens64, hdrs64, dstl64 = _batch_arrays(grp, rows)
         rc64 = np.zeros(len(rows), np.int64)
-        bad = nat.stage_flat_dec_id_batch(
+        bad = _native_call(
+            native.stage_flat_dec_id_batch,
             src_arr, offs64, lens64, hdrs64, dstl64, b_u8.shape[1] // 128,
             b_u8[rows[0] : rows[0] + len(rows)], rc64,
             n_threads=_threads())
@@ -827,6 +902,7 @@ def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
         r = r2 + 1
 
 
+@_entry
 def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
                                 device=None) -> torch.Tensor:
     """Framed-stream decode to a uint8 tensor on ``device``.
@@ -844,57 +920,72 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     Streams whose chunks are not all full 64 KiB rows but the last, and
     the classify and jnp engines, decode through ``decompress_framed``
     and upload the result."""
-    chunks, total = _scan_frames(data)
-    device = resolve(device)
-    uniform = total > 0 and all(
-        ch[4] == _CRC_CHUNK for ch in chunks[:-1]) and all(
-        ch[2] <= _DECODE_CMAX for ch in chunks if ch[0] == CHUNK_COMPRESSED)
-    engine = _decode_engine(verify_checksums and DEVICE_CRC)
+    # the phases tile the call: the stream read and its path picked, the
+    # buffers made, the batches, the buffers given back.  A batch's spans
+    # nest in one enqueue span and one finish span, so that the profiler's
+    # own time between two of them falls in a phase, not in the call
+    with span("snappy.scan"):
+        chunks, total = _scan_frames(data)
+        uniform = total > 0 and all(
+            ch[4] == _CRC_CHUNK for ch in chunks[:-1]) and all(
+            ch[2] <= _DECODE_CMAX for ch in chunks
+            if ch[0] == CHUNK_COMPRESSED)
+        device = resolve(device)
+        engine = _decode_engine(verify_checksums and DEVICE_CRC)
     if not (engine in ("id", "seq", "hybrid") and DEVICE_CRC and uniform):
         return _upload_bytes(
             decompress_framed(data, verify_checksums, device=device), device)
-    src_arr = np.frombuffer(data, np.uint8)
-    out = torch.empty(total, dtype=torch.uint8, device=device)
-    seq = engine == "seq"
-    if seq:
-        step = _seq_width(_dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
-        sets = _seq_dec_sets(device, min(step, len(chunks)), host_out=False)
-    elif engine == "hybrid":
-        step = BATCH
-        sets = _hybrid_sets(device, min(step, len(chunks)), host_out=False)
-    else:
-        step = BATCH
-        sets = _id_sets(device)
-
-    def dispatch(k, base):
-        grp = chunks[base : base + step]
-        hs = sets[k % _NSETS]
+    COUNTERS["bytes"] += total
+    with span("snappy.alloc"):
+        src_arr = np.frombuffer(data, np.uint8)
+        out = torch.empty(total, dtype=torch.uint8, device=device)
+        seq = engine == "seq"
         if seq:
-            rows = _dispatch_seq(src_arr, grp, hs, device, verify_checksums,
+            step = _seq_width(_dseq.resident_rows, device,
+                              MAX_CHUNK_UNCOMPRESSED)
+            sets = _seq_dec_sets(device, min(step, len(chunks)),
                                  host_out=False)
         elif engine == "hybrid":
-            rows = _dispatch_hybrid(src_arr, grp, hs, device,
-                                    verify_checksums, host_out=False)
+            step = BATCH
+            sets = _hybrid_sets(device, min(step, len(chunks)),
+                                host_out=False)
         else:
-            rows = _dispatch_id(src_arr, grp, hs, device, verify_checksums)
-        # every chunk but the stream's last fills its 64 KiB row
-        lo = base * _CRC_CHUNK
-        nb = sum(ch[4] for ch in grp)
-        full = nb // _CRC_CHUNK
-        if full:
-            out[lo : lo + full * _CRC_CHUNK].view(full, _CRC_CHUNK).copy_(
-                rows[:full, :_CRC_CHUNK])
-        if nb > full * _CRC_CHUNK:
-            out[lo + full * _CRC_CHUNK : lo + nb].copy_(
-                rows[full, : nb - full * _CRC_CHUNK])
+            step = BATCH
+            sets = _id_sets(device)
+
+    def dispatch(k, base):
+        with span("snappy.enqueue"):
+            grp = chunks[base : base + step]
+            hs = sets[k % _NSETS]
+            if seq:
+                rows = _dispatch_seq(src_arr, grp, hs, device,
+                                     verify_checksums, host_out=False)
+            elif engine == "hybrid":
+                rows = _dispatch_hybrid(src_arr, grp, hs, device,
+                                        verify_checksums, host_out=False)
+            else:
+                rows = _dispatch_id(src_arr, grp, hs, device,
+                                    verify_checksums)
+            # every chunk but the stream's last fills its 64 KiB row
+            lo = base * _CRC_CHUNK
+            nb = sum(ch[4] for ch in grp)
+            full = nb // _CRC_CHUNK
+            if full:
+                out[lo : lo + full * _CRC_CHUNK].view(full, _CRC_CHUNK).copy_(
+                    rows[:full, :_CRC_CHUNK])
+            if nb > full * _CRC_CHUNK:
+                out[lo + full * _CRC_CHUNK : lo + nb].copy_(
+                    rows[full, : nb - full * _CRC_CHUNK])
         return grp, hs
 
     for grp, hs in _one_behind(range(0, len(chunks), step), dispatch):
-        hs.wait()
-        if seq:
-            _check_seq(grp, hs, verify_checksums)
-        elif verify_checksums:
-            _check_crcs(grp, hs.np["crc"])
+        with span("snappy.finish"):
+            hs.wait()
+            if seq:
+                _check_seq(grp, hs, verify_checksums)
+            elif verify_checksums:
+                _check_crcs(grp, hs.np["crc"])
+    _release(sets)
     return out
 
 
@@ -947,6 +1038,7 @@ def _decompress_raw_flat(data: bytes, dst_len: int, hdr: int,
     return out[:dst_len]
 
 
+@_entry
 def decompress(data: bytes, device=None) -> bytes:
     """Raw Snappy stream decode to host bytes.  Id mode: the native walk
     is the decode (a raw stream has no CRC for the device to check).
@@ -956,6 +1048,7 @@ def decompress(data: bytes, device=None) -> bytes:
     of the parallel decoder on ``device``, as the JAX package's
     ``decode_block_jnp``."""
     dst_len, hdr = read_uvarint(data, 0)
+    COUNTERS["bytes"] += dst_len
     if not native.available():
         return _dpar.decode_block_par(data, dst_len, start=hdr,
                                       device=resolve(device))
@@ -968,6 +1061,7 @@ def decompress(data: bytes, device=None) -> bytes:
     return nat.decompress(data)
 
 
+@_entry
 def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
     """Raw Snappy stream decode to a uint8 tensor on ``device``.
 
@@ -981,6 +1075,7 @@ def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
     Without the native library: one row of the parallel decoder on
     ``device``, the result left there."""
     dst_len, hdr = read_uvarint(data, 0)
+    COUNTERS["bytes"] += dst_len
     device = resolve(device)
     if not native.available():
         return _dpar.decode_block_par_to_device(data, dst_len, start=hdr,
@@ -1023,6 +1118,7 @@ def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
             cnt += 1
         out[lo:done].copy_(hs.t["rows"].view(-1)[: done - lo],
                            non_blocking=True)
+        COUNTERS["h2d_bytes"] += done - lo
         hs.record()
     if int(state[0]) != len(data) or state[3] or state[5]:
         raise CorruptError("raw stream length disagrees with preamble")
@@ -1105,8 +1201,8 @@ def _encode_batches(data, chunk_size: int, device):
                     hs.np["ntr"][i] = 0
         comp = _enc.encode_blocks_flat(*_upload_flat(hs, cnt, rb, device))
         kmax = min((int(clens64.max()) + 511) & ~511, _enc.ENC_DST_MAX)
-        hs.t["comp"][: cnt * kmax].view(cnt, kmax).copy_(
-            comp[:, :kmax].contiguous(), non_blocking=True)
+        _fetch(hs.t["comp"][: cnt * kmax].view(cnt, kmax),
+               comp[:, :kmax].contiguous())
         hs.record()
         return base, lens64, hs, clens64, hdrs64, fallback, kmax
 
@@ -1151,6 +1247,7 @@ def _fetch_rows(t: torch.Tensor, idx, lens) -> dict:
         return {}
     width = int(max(lens[i] for i in idx))
     got = t[torch.tensor(idx, device=t.device), :width].cpu().numpy()
+    COUNTERS["d2h_bytes"] += got.nbytes
     return {i: got[j, : lens[i]] for j, i in enumerate(idx)}
 
 
@@ -1243,15 +1340,14 @@ def _encode_jnp(src, chunk_size: int, device, with_crc: bool = False):
             rows = _upload(hs.t["blocks"][:cnt], device)
         lens_d = _upload(hs.t["lens"][:cnt], device)
         comp, clens, ok = _epar.encode_blocks(rows, lens_d, bmax=bmax)
-        hs.t["clens"][:cnt].copy_(clens, non_blocking=True)
-        hs.t["ok"][:cnt].copy_(ok, non_blocking=True)
+        _fetch(hs.t["clens"][:cnt], clens)
+        _fetch(hs.t["ok"][:cnt], ok)
         if with_crc:
-            hs.t["crc"][:cnt].copy_(crc32c_chunks(rows, lens_d),
-                                    non_blocking=True)
+            _fetch(hs.t["crc"][:cnt], crc32c_chunks(rows, lens_d))
         ref = None
         if guard_on_dev:
             ref = encode_blocks_seq(rows, lens_d)
-            hs.t["ref_clens"][:cnt].copy_(ref[1], non_blocking=True)
+            _fetch(hs.t["ref_clens"][:cnt], ref[1])
         hs.record()
 
         def chunk(i):  # the host bytes of the batch's chunk i
@@ -1271,6 +1367,7 @@ def _encode_jnp(src, chunk_size: int, device, with_crc: bool = False):
         lens = hs.np["lens"][:cnt].copy()
         kmax = min((int(clens.max()) + 511) & ~511, comp.shape[1])
         comp_h = comp[:, :kmax].cpu().numpy()
+        COUNTERS["d2h_bytes"] += comp_h.nbytes
         refs, ref_lens = _reference_elements(b, ok, clens)
         blobs = []
         for i in range(cnt):
@@ -1333,16 +1430,19 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
     n_chunks = -(-n // cs)
     if n_chunks == 0:
         return
-    step = _seq_width(_eseq.resident_rows, device, cs)
-    rows_n = min(step, n_chunks)
-    cap = comp_width(cs)
-    shapes = dict(lens=((rows_n,), torch.int32), clens=((rows_n,), torch.int32),
-                  crc=((rows_n,), torch.int64),
-                  comp=((rows_n * cap,), torch.uint8))
-    # device input: rows the host fetches; host input: pinned staging rows
-    shapes["stored" if on_dev else "blocks"] = ((rows_n * cs,), torch.uint8)
-    sets = _host_sets(device, **shapes)
-    src_np = None if on_dev else np.frombuffer(src, np.uint8)
+    with span("snappy.alloc"):
+        step = _seq_width(_eseq.resident_rows, device, cs)
+        rows_n = min(step, n_chunks)
+        cap = comp_width(cs)
+        shapes = dict(lens=((rows_n,), torch.int32),
+                      clens=((rows_n,), torch.int32),
+                      crc=((rows_n,), torch.int64),
+                      comp=((rows_n * cap,), torch.uint8))
+        # device input: rows the host fetches; host input: pinned staging rows
+        shapes["stored" if on_dev else "blocks"] = ((rows_n * cs,),
+                                                    torch.uint8)
+        sets = _host_sets(device, **shapes)
+        src_np = None if on_dev else np.frombuffer(src, np.uint8)
     pending = []
 
     def rows_of(lo: int, nb: int, cnt: int, hs: _HostSet) -> torch.Tensor:
@@ -1354,62 +1454,74 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
     def fetch(b: dict) -> None:
         if b["kmax"] is not None:
             return
-        hs, cnt, lens = b["hs"], b["cnt"], b["lens"]
-        hs.wait()  # its lengths (and CRCs) are on the host
-        clens = hs.np["clens"][:cnt]
-        kmax = min((int(clens.max()) + 511) & ~511, cap)
-        hs.t["comp"][: cnt * kmax].view(cnt, kmax).copy_(
-            b["comp"][:, :kmax].contiguous(), non_blocking=True)
-        if on_dev:
-            b["stored"] = {i for i in range(cnt) if not with_crc or _stored(
-                int(lens[i]), int(clens[i]))}
-            for i in b["stored"]:
-                hs.t["stored"][i * cs : i * cs + lens[i]].copy_(
-                    b["rows"][i, : lens[i]], non_blocking=True)
-        hs.record()
+        with span("snappy.enqueue"):
+            hs, cnt, lens = b["hs"], b["cnt"], b["lens"]
+            hs.wait()  # its lengths (and CRCs) are on the host
+            clens = hs.np["clens"][:cnt]
+            kmax = min((int(clens.max()) + 511) & ~511, cap)
+            _fetch(hs.t["comp"][: cnt * kmax].view(cnt, kmax),
+                   b["comp"][:, :kmax].contiguous())
+            if on_dev:
+                b["stored"] = {i for i in range(cnt)
+                               if not with_crc or _stored(int(lens[i]),
+                                                          int(clens[i]))}
+                for i in b["stored"]:
+                    _fetch(hs.t["stored"][i * cs : i * cs + lens[i]],
+                           b["rows"][i, : lens[i]])
+            hs.record()
         b["kmax"] = kmax
 
+    # a batch's spans nest in one enqueue span and one finish span, so
+    # that the profiler's own time between two of them falls in a phase
     def dispatch(k, base):
-        cnt = min(step, n_chunks - base)
-        lo = base * cs
-        nb = min(n, lo + cnt * cs) - lo
-        hs = sets[k % _NSETS]
-        hs.wait()
-        lens = _chunk_lens(nb, cnt, cs)
-        hs.np["lens"][:cnt] = lens
-        rows = rows_of(lo, nb, cnt, hs)
-        if pending:
-            fetch(pending.pop())
-        lens_d = _upload(hs.t["lens"][:cnt], device)
-        comp, clens, _err = encode_blocks_seq(rows, lens_d)  # lens are valid
-        hs.t["clens"][:cnt].copy_(clens, non_blocking=True)
-        if with_crc:
-            hs.t["crc"][:cnt].copy_(crc32c_chunks(rows, lens_d),
-                                    non_blocking=True)
-        hs.record()
-        b = dict(base=base, cnt=cnt, hs=hs, rows=rows, comp=comp, lens=lens,
-                 kmax=None, stored=set())
-        pending.append(b)
+        with span("snappy.enqueue"):
+            cnt = min(step, n_chunks - base)
+            lo = base * cs
+            nb = min(n, lo + cnt * cs) - lo
+            hs = sets[k % _NSETS]
+            hs.wait()
+            with span("snappy.stage"):
+                lens = _chunk_lens(nb, cnt, cs)
+                hs.np["lens"][:cnt] = lens
+                rows = rows_of(lo, nb, cnt, hs)
+            if pending:
+                fetch(pending.pop())
+            lens_d = _upload(hs.t["lens"][:cnt], device)
+            comp, clens, _err = encode_blocks_seq(rows, lens_d)  # valid lens
+            _fetch(hs.t["clens"][:cnt], clens)
+            if with_crc:
+                _fetch(hs.t["crc"][:cnt], crc32c_chunks(rows, lens_d))
+            hs.record()
+            b = dict(base=base, cnt=cnt, hs=hs, rows=rows, comp=comp,
+                     lens=lens, kmax=None, stored=set())
+            pending.append(b)
         return b
 
     for b in _one_behind(range(0, n_chunks, step), dispatch):
-        fetch(b)  # the last batch: no later dispatch queued its fetch
-        hs = b["hs"]
-        hs.wait()
-        comp = hs.np["comp"][: b["cnt"] * b["kmax"]].reshape(b["cnt"],
-                                                            b["kmax"])
-        for i in range(b["cnt"]):
-            ln = int(b["lens"][i])
-            yield (b["base"] + i, ln, comp[i, : hs.np["clens"][i]].tobytes(),
-                   int(hs.np["crc"][i]) if with_crc else None,
-                   hs.np["stored"][i * cs : i * cs + ln]
-                   if i in b["stored"] else None)
+        # held across the yields: the caller's assembly of each record
+        # runs inside it
+        with span("snappy.finish"):
+            fetch(b)  # the last batch: no later dispatch queued its fetch
+            hs = b["hs"]
+            hs.wait()
+            comp = hs.np["comp"][: b["cnt"] * b["kmax"]].reshape(b["cnt"],
+                                                                b["kmax"])
+            for i in range(b["cnt"]):
+                ln = int(b["lens"][i])
+                yield (b["base"] + i, ln,
+                       comp[i, : hs.np["clens"][i]].tobytes(),
+                       int(hs.np["crc"][i]) if with_crc else None,
+                       hs.np["stored"][i * cs : i * cs + ln]
+                       if i in b["stored"] else None)
+    _release(sets)
 
 
+@_entry
 def compress(data: bytes, device=None) -> bytes:
     """Raw Snappy stream (per-64 KiB fragments)."""
     if len(data) > MAX_UNCOMPRESSED_LEN:
         raise TooLargeError(len(data))
+    COUNTERS["bytes"] += len(data)
     device = resolve(device)
     out = bytearray(put_uvarint(len(data)))
     engine = _encode_engine()
@@ -1426,6 +1538,7 @@ def compress(data: bytes, device=None) -> bytes:
     return bytes(out)
 
 
+@_entry
 def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
                     device=None) -> bytes:
     """Framed (.sz) stream.  Id mode with 64 KiB chunks: device CRCs
@@ -1437,6 +1550,7 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
     kernel, beside the jnp or seq engine's encode of the same rows."""
     if not 0 < chunk_size <= MAX_CHUNK_UNCOMPRESSED:
         raise ValueError(f"chunk_size must be in (0, 65536], got {chunk_size}")
+    COUNTERS["bytes"] += len(data)
     device = resolve(device)
     engine = _encode_engine()
     if (engine == "flat" and FLAT_MODE == "id"
@@ -1473,7 +1587,7 @@ def _compress_framed_id(data: bytes, device) -> bytes:
     the 64 KiB chunks while the native matcher and assembler
     (``sn_compress_framed_crc``) emit the previous batch's records with
     its device CRCs passed through."""
-    nat = _native()
+    _native()
     cs = MAX_CHUNK_UNCOMPRESSED
     data_np = np.frombuffer(data, np.uint8)
     n = len(data)
@@ -1501,9 +1615,9 @@ def _compress_framed_id(data: bytes, device) -> bytes:
         if hs is not None:
             hs.wait()
             crcs = hs.np["crc"][:cnt].astype(np.uint32)
-        out += nat.compress_framed_crc(data_np[lo : lo + nb], nb, crcs,
-                                       chunk_size=cs, threads=_threads(),
-                                       write_id=False)
+        out += _native_call(native.compress_framed_crc, data_np[lo : lo + nb],
+                            nb, crcs, chunk_size=cs, threads=_threads(),
+                            write_id=False)
     return bytes(out)
 
 
@@ -1513,6 +1627,7 @@ def _check_uint8(arr) -> None:
             f"expected a uint8 tensor, got {getattr(arr, 'dtype', type(arr))}")
 
 
+@_entry
 def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     """Compress a uint8 device tensor into a framed (.sz) stream.
 
@@ -1528,9 +1643,11 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     tensor's chunks in place and the CRC kernel checksums them: the
     bytes of ``compress_framed(bytes(arr))``."""
     _check_uint8(arr)
-    device = arr.device if device is None else resolve(device)
-    arr = arr.to(device).reshape(-1)
+    with span("snappy.alloc"):
+        device = arr.device if device is None else resolve(device)
+        arr = arr.to(device).reshape(-1)
     n = int(arr.numel())
+    COUNTERS["bytes"] += n
     if n == 0:
         return bytes(STREAM_ID_CHUNK)
     cs = MAX_CHUNK_UNCOMPRESSED
@@ -1543,8 +1660,8 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
             if crc is None:
                 crc = native.crc32c(stored.tobytes())
             out += _framed_record(ln, elem, crc, stored)
-        return bytes(out)
-    nat = native
+        with span("snappy.finish"):
+            return bytes(out)
     n_chunks = -(-n // cs)
     sets = _crc_sets(device, min(BATCH, n_chunks), "rows")
 
@@ -1552,32 +1669,41 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
         cnt = min(BATCH, n_chunks - base)
         lo = base * cs
         nb = min(n, lo + cnt * cs) - lo
-        flat = arr[lo : lo + nb]
         hs = sets[k % _NSETS]
-        hs.wait()
-        if DEVICE_CRC:
-            if nb == cnt * cs:
-                rows = flat.view(cnt, cs)
-            else:  # the stream's short last chunk: pad its row
-                rows = torch.zeros(cnt * cs, dtype=torch.uint8, device=device)
-                rows[:nb] = flat
-                rows = rows.view(cnt, cs)
-            hs.np["lens"][:cnt] = _chunk_lens(nb, cnt)
-            _crc_into(hs, rows, device)
-        hs.t["rows"][:nb].copy_(flat, non_blocking=True)
-        hs.record()
+        # the batch's spans nest in one enqueue span and one finish span
+        with span("snappy.enqueue"):
+            flat = arr[lo : lo + nb]
+            hs.wait()
+            with span("snappy.stage"):
+                if DEVICE_CRC:
+                    if nb == cnt * cs:
+                        rows = flat.view(cnt, cs)
+                    else:  # the stream's short last chunk: pad its row
+                        rows = torch.zeros(cnt * cs, dtype=torch.uint8,
+                                           device=device)
+                        rows[:nb] = flat
+                        rows = rows.view(cnt, cs)
+                    hs.np["lens"][:cnt] = _chunk_lens(nb, cnt)
+            if DEVICE_CRC:
+                _crc_into(hs, rows, device)
+            _fetch(hs.t["rows"][:nb], flat)
+            hs.record()
         return nb, cnt, hs
 
     out = bytearray(STREAM_ID_CHUNK)
     for nb, cnt, hs in _one_behind(range(0, n_chunks, BATCH), dispatch):
-        hs.wait()
-        crcs = hs.np["crc"][:cnt].astype(np.uint32) if DEVICE_CRC else None
-        out += nat.compress_framed_crc(hs.np["rows"][:nb], nb, crcs,
-                                       chunk_size=cs, threads=_threads(),
-                                       write_id=False)
-    return bytes(out)
+        with span("snappy.finish"):
+            hs.wait()
+            crcs = hs.np["crc"][:cnt].astype(np.uint32) if DEVICE_CRC else None
+            out += _native_call(native.compress_framed_crc,
+                                hs.np["rows"][:nb], nb, crcs, chunk_size=cs,
+                                threads=_threads(), write_id=False)
+    _release(sets)
+    with span("snappy.finish"):
+        return bytes(out)
 
 
+@_entry
 def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     """Raw-format counterpart of ``compress_framed_from_device``.  The raw
     format has no checksums, so the device has nothing to compute: fetch
@@ -1589,6 +1715,7 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     encodes the tensor's blocks in place (the bytes of
     ``compress(bytes(arr))``)."""
     _check_uint8(arr)
+    COUNTERS["bytes"] += int(arr.numel())
     engine = _encode_engine()
     if engine == "seq" or not native.available():
         device = arr.device if device is None else resolve(device)
@@ -1602,4 +1729,5 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     if device is not None:
         arr = arr.to(resolve(device))
     host = arr.reshape(-1).cpu().numpy()
+    COUNTERS["d2h_bytes"] += host.nbytes
     return native.compress(memoryview(host))

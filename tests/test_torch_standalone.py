@@ -40,7 +40,7 @@ MODULES = [
     "bench.corpus", "bench.kernel_cost", "bench.pretagged_profile",
     "bench.seq_profile",
     "utils.hostmem", "utils.log",
-    "utils.progress",
+    "utils.progress", "utils.trace",
 ]
 
 
