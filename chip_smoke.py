@@ -9,8 +9,9 @@ source) and the port's native host codec (g++) from the sources, checks
 each kernel bit for bit against its plain PyTorch version at the main
 path's shapes (the sequential, wave-group and match kernels also at
 their engine's launch width, the card's resident rows, with hostile or
-edge rows), drives the framed to-device / from-device path through the
-public entry points in each runtime engine (id: 256 MiB, classify:
+edge rows; the framed-record kernel at the seq engine's width, phase
+6b, against its plain version and the host's records), drives the
+framed to-device / from-device path through the public entry points in each runtime engine (id: 256 MiB, classify:
 64 MiB, the device LZ engine "seq": 256 MiB of the seeded benchmark
 corpus) against the native codec, drives the two standalone engines
 over 256 MiB of the same corpus (the wave-group decoder "wave" and the
@@ -98,6 +99,11 @@ KERNELS = {
         "source": "snappy_tpu_torch/csrc/encode_par.cu",
         "replaces": "snappy_tpu/kernels/encode_jnp.py:397",
     },
+    # none: the JAX package assembles framed records on the host
+    "frame_records": {
+        "source": "snappy_tpu_torch/csrc/frame_records.cu",
+        "replaces": None,
+    },
 }
 # a substring of each CUDA kernel's name in the profiler's records: each
 # function's row by its name, a function of several kernels (the parallel
@@ -115,7 +121,8 @@ PAR_KERNELS = {
 PROFILER_KEYS = {"crc32c_rows": "crc32c_rows", "flat_exec": "flat_exec",
                  "seq_decode": "seq_decode", "seq_encode": "seq_encode",
                  "wavegroup": "wavegroup", "match_cands": "match_kernel",
-                 "decode_pretagged": "pretagged", **PAR_KERNELS,
+                 "decode_pretagged": "pretagged",
+                 "frame_records": "frame_records", **PAR_KERNELS,
                  **{k: k for ks in PAR_KERNELS.values() for k in ks}}
 SEQ_ROWS = 64  # rows of the seq, wave and match checks and timings before
                # their engines launched at the card's resident rows
@@ -338,11 +345,13 @@ def _counters():
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
     from snappy_tpu_torch.kernels import encode_par as ep
     from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import frame_records as kfr
     from snappy_tpu_torch.kernels import match as km
 
     return {"crc32c_rows": kc, "flat_exec": kf, "seq_decode": kds,
             "seq_encode": kes, "wavegroup": kw, "match_cands": km,
-            "decode_pretagged": kp, "decode_par": dp, "encode_par": ep}
+            "decode_pretagged": kp, "decode_par": dp, "encode_par": ep,
+            "frame_records": kfr}
 
 
 def _counter_modules() -> dict:
@@ -482,6 +491,78 @@ def seq_encode_phase(card, dev, data, full):
     return (max(r[0] for r in runs.values()),
             tuple(t[:SEQ_ROWS] for t in runs["64"][1]), runs["wide"][1],
             runs["wide"][2])
+
+
+def frame_phase(card, dev, full):
+    """Phase 6b: the framed-record kernel against its plain version and
+    the host's records (``device_codec._framed_record``) at the seq
+    engine's width, the card's resident rows: 64 KiB corpus chunks taken
+    across the corpus, incompressible (stored) chunks, short chunks of
+    each varint width (1, 2 and 3 bytes), and four corpus rows' element
+    lengths set at the 12.5% boundary (stored at it, compressed one byte
+    under), once with the chunk rows and elements where the runtime
+    holds them and once at odd byte offsets.  Every comparison is exact.
+    Returns (max_abs_err, the aligned launch's arguments, the plain
+    version's seconds there)."""
+    from snappy_tpu_torch.kernels import crc32c as kc
+    from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import frame_records as kfr
+    from snappy_tpu_torch.runtime import device_codec as dc
+
+    rng = np.random.default_rng(13)
+    extra = [rng.bytes(65536), rng.bytes(65536), rng.bytes(100),
+             rng.bytes(10_000), b"q" * 100, b"w" * 10_000, b"e" * 16384,
+             rng.bytes(1), full[:127], full[:16383], full[:16384]]
+    width = dc._seq_width(kes.resident_rows, dev, 65536)
+    samples = _spread(full, width - len(extra), 0.25) + extra
+    lens = np.array([len(s) for s in samples], np.int32)
+    host = np.zeros((width, 65536), np.uint8)
+    for i, s in enumerate(samples):
+        host[i, : len(s)] = np.frombuffer(s, np.uint8)
+    rows, lens_d = kes.stage_encode(host, lens, dev)
+    comp, clens, _err = kes.encode_blocks_seq(rows, lens_d)
+    crc = kc.crc32c_chunks(rows, lens_d)
+    for r, below in enumerate((0, 1, 0, 1)):  # 64 KiB corpus rows
+        clens[r] = 65536 - 65536 // 8 - 3 - below
+    comp_h, clens_h, crc_h = (t.cpu().numpy() for t in (comp, clens, crc))
+    recs = [dc._framed_record(int(lens[r]), comp_h[r, : clens_h[r]].tobytes(),
+                              int(crc_h[r]), host[r, : lens[r]])
+            for r in range(width)]
+    kinds = [rec[0] for rec in recs]
+    assert kinds[:4] == [1, 0, 1, 0], f"boundary rows framed as {kinds[:4]}"
+    want = b"".join(recs)
+    max_err, plain_s = 0, None
+    for name, row_off, comp_off in (("aligned", 0, 0), ("odd", 5, 3)):
+        flat = torch.zeros(row_off + width * 65536, dtype=torch.uint8,
+                           device=dev)
+        flat[row_off:] = rows.reshape(-1)
+        comp_o = torch.zeros((width, comp.shape[1] + comp_off),
+                             dtype=torch.uint8, device=dev)
+        comp_o[:, comp_off:] = comp
+        args = (flat[row_off:].view(width, 65536), lens_d,
+                comp_o[:, comp_off:], clens, crc)
+        before = kfr.launches
+        framed, ends = kfr.frame_records(*args)
+        torch.cuda.synchronize()
+        assert kfr.launches == before + 1, "frame_records: not one launch"
+        (pframed, pends), secs = timed(lambda: kfr.frame_records_plain(*args))
+        total = int(pends[-1])
+        max_err = max(max_err, int((ends - pends).abs().max()), int(
+            (framed[:total].to(torch.int16)
+             - pframed[:total].to(torch.int16)).abs().max()))
+        assert torch.equal(ends, pends) and torch.equal(
+            framed[:total], pframed[:total]), f"frame_records != plain ({name})"
+        assert framed[:total].cpu().numpy().tobytes() == want, \
+            f"frame_records != _framed_record ({name})"
+        if name == "aligned":
+            main_args, plain_s = (rows, lens_d, comp, clens, crc), secs
+    log(card, f"frame_records [{width} rows]: {width - len(extra)} corpus "
+              f"rows and {len(extra)} edge rows, {kinds.count(1)} stored and "
+              f"{kinds.count(0)} compressed, the first four at the 12.5% "
+              f"boundary; aligned and at odd offsets byte-identical to plain "
+              f"and _framed_record (max_abs_err {max_err}), {len(want)} B "
+              f"of records; plain {plain_s:.3f} s")
+    return max_err, main_args, plain_s
 
 
 def wave_phase(card, dev, data, full):
@@ -892,7 +973,8 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
         ("seq", seq_engine), ("wave", wave_engine),
         ("devmatch", devmatch_engine))}
     for eng, kernels in (("id", ["crc32c_rows"]), ("classify", ["flat_exec"]),
-                         ("seq", ["seq_decode", "seq_encode", "crc32c_rows"]),
+                         ("seq", ["seq_decode", "seq_encode", "crc32c_rows",
+                                  "frame_records"]),
                          ("wave", ["wavegroup"]),
                          ("devmatch", ["match_cands"])):
         for name in kernels:
@@ -967,7 +1049,7 @@ def seq_launches(dev, data: bytes) -> dict:
 
 
 def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
-                 match):
+                 match, frame):
     """Phase 14: each kernel against its plain version at the main path's
     shapes, alternating plain, kernel, kernel, plain (a serial walk's
     plain once, before the kernel).  The main path's shape ("main", the
@@ -977,7 +1059,9 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
     sequential, wave and match kernels at their engine's width (the card's
     resident rows; ``wave`` and ``match``: the 64-row and wide arguments;
     the sequential plain times at the width are phases 5-6's single call
-    on the same launch).  Besides: the CRC at one row (a 4 KiB and a
+    on the same launch), the framed-record kernel on phase 6b's aligned
+    batch at the seq engine's width (``frame``: its arguments and its
+    plain version's ms there).  Besides: the CRC at one row (a 4 KiB and a
     64 KiB length, a checkpoint tensor's call) and at the seq engine's
     width, the flat kernel on the same plans at the full trip cap and
     the widest B rows (``plan``, as phase 4 stages them) and on BATCH
@@ -990,7 +1074,7 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
     beside the launches in ``records``.  Its bound: its bytes
     (``bench.kernel_cost.kernel_bytes``) over the card's memory rate; the
     integer and byte work per byte is far under the card's operation
-    rates, so bytes bound all six.  Returns {name or name.label: ms,
+    rates, so bytes bound all seven.  Returns {name or name.label: ms,
     device_ms, records, plain_ms, bound_ms, rows}, the plain name at the
     main path's shape."""
     from snappy_tpu_torch.bench.kernel_cost import (HBM_BYTES_PER_S,
@@ -1000,6 +1084,7 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
     from snappy_tpu_torch.kernels import decode_seq as kds
     from snappy_tpu_torch.kernels import decode_wavegroup as kw
     from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.kernels import frame_records as kfr
     from snappy_tpu_torch.kernels import match as km
     from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -1024,6 +1109,7 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
         "wavegroup": (kw.decode_blocks_wavegroup,
                       kw.decode_blocks_wavegroup_plain, {"out_max": 65536}),
         "match_cands": (km.find_candidates, km.find_candidates_plain, {}),
+        "frame_records": (kfr.frame_records, kfr.frame_records_plain, {}),
     }
     enc_kw = {"dst_max": 81920, "out_rows": 640}
     # (name, shape label, args, kernel iters, plain iters or a plain ms,
@@ -1047,7 +1133,8 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
             ("wavegroup", "64", wave[0], 50, 2, None),
             ("wavegroup", "main", wave[1], 20, 2, None),
             ("match_cands", "64", match[0], 50, 5, None),
-            ("match_cands", "main", match[1], 20, 3, None)]
+            ("match_cands", "main", match[1], 20, 3, None),
+            ("frame_records", "main", frame[0], 200, frame[1], None)]
     for name, shape, args, k_iters, plain_it, kw_over in runs:
         kern_fn, plain_fn, kw_args = fns[name]
         kw_args = kw_over or kw_args
@@ -1071,7 +1158,7 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
             k1 = time_ms(kern, k_iters)
             k2 = time_ms(kern, k_iters)
             plain_ms = plain_it
-            plain_txt = f"plain {plain_ms:.1f} ms (phases 5-6, one call)"
+            plain_txt = f"plain {plain_ms:.1f} ms (phases 5-6b, one call)"
         recs = profiled(kern, min(k_iters, 50), PROFILER_KEYS[name])
         dev_ms = recs["kernel_ms_mean"]
         records = [recs["kernel_records"], recs["launches"]]
@@ -2431,6 +2518,7 @@ def main() -> int:
         card, dev, flat_data, full)
     seq_enc_err, enc64, enc_wide, enc_plain_s = seq_encode_phase(
         card, dev, flat_data[1 << 23 :], full)
+    frame_err, frame_args, frame_plain_s = frame_phase(card, dev, full)
     wave_err, wave64, wave_wide = wave_phase(card, dev, flat_data[1 << 22 :],
                                              full)
     match_err, match64, match_wide = match_phase(
@@ -2452,7 +2540,8 @@ def main() -> int:
         {"seq_decode": dec64, "seq_encode": enc64},
         {"seq_decode": (dec_wide, dec_plain_s * 1e3),
          "seq_encode": (enc_wide, enc_plain_s * 1e3)},
-        (wave64, wave_wide), (match64, match_wide))
+        (wave64, wave_wide), (match64, match_wide),
+        (frame_args, frame_plain_s * 1e3))
 
     ck_rates, ck_counts, info_blob = checkpoint_phase(
         card, dev, args.ckpt_layers, args.seed)
@@ -2474,10 +2563,12 @@ def main() -> int:
               f"{launches}")
     errs = {"crc32c_rows": crc_err, "flat_exec": flat_err,
             "seq_decode": seq_dec_err, "seq_encode": seq_enc_err,
-            "wavegroup": wave_err, "match_cands": match_err, **po_errs}
-    # no single PyTorch call computes any of the nine functions (a CRC,
+            "wavegroup": wave_err, "match_cands": match_err,
+            "frame_records": frame_err, **po_errs}
+    # no single PyTorch call computes any of the ten functions (a CRC,
     # a plan copy, an LZ decode or encode, a wave plan, a candidate
-    # search, a record executor), so none has a library yardstick
+    # search, a record executor, a framed-record assembly), so none has
+    # a library yardstick
     table = {"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": errs[name],

@@ -82,7 +82,10 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
     function's, not the kernels' scratch): a decode reads each row's element
     stream and writes its rows and error codes, an encode reads each
     block and writes its element row (``encode_par.derived_sizes``'
-    ``emax`` wide), length and flag.
+    ``emax`` wide), length and flag.  ``frame_records`` reads each
+    record's body (the stored chunk or the element), a length, an
+    element length and a CRC a row, and writes the records and an end
+    offset a row.
     ``out_max`` is the output row's bytes (the flat kernel's
     ``dst_max``), ``out_rows`` the flat kernel's compose panel."""
     import torch
@@ -135,6 +138,14 @@ def kernel_bytes(name: str, args, out_max: int = 65536,
         block, n = args
         emax = ep.derived_sizes(block.shape[1])[2]
         return int(n.sum()) + 4 * nb + nb * (emax + 4 + 1)
+    if name == "frame_records":
+        from snappy_tpu_torch.kernels import frame_records as kfr
+
+        rows, lens, comp, clens, crc = args
+        n, c, _vlen, raw, body = kfr.layout(lens, clens, rows.shape[1],
+                                             comp.shape[1])
+        return int(n[raw].sum() + c[~raw].sum()) + 16 * nb \
+            + int((kfr.HEADER + body).sum()) + 8 * nb
     if name == "match_cands":
         words, npos = args
         return _nbytes(words) + _nbytes(npos) + nb * km._check(*args) * 4

@@ -156,6 +156,9 @@ def _declare(lib) -> None:
                                    p]
     lib.snc_encode_par_scratch.restype = ctypes.c_int
     lib.snc_encode_par_scratch.argtypes = [i32, i32, i32, p]
+    lib.snc_frame_records.restype = ctypes.c_int
+    lib.snc_frame_records.argtypes = [p, i64, i32, p, p, i64, i32, p, p, p,
+                                      p, i32, p]
     lib.snc_error_string.restype = ctypes.c_char_p
     lib.snc_error_string.argtypes = [ctypes.c_int]
 

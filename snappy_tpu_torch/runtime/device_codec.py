@@ -38,7 +38,8 @@ device CRCs.  Under FLAT=0 with PALLAS on, raw decode is native too.
                 is and one warp decodes it (``kernels.decode_seq``), each
                 64 KiB chunk goes up as is and one warp runs the
                 reference matcher on it (``kernels.encode_seq``), and the
-                CRCs are computed on the device too.
+                CRCs are computed on the device too; a framed encode's
+                records are written there (``kernels.frame_records``).
   hybrid        the native parser (``parse_tags``) validates each
                 compressed payload and emits one record per element; the
                 payload rows and the records go up, the record executor
@@ -87,7 +88,8 @@ assembly after it).  The id and seq engines' framed paths have every
 phase; the others ``snappy.alloc`` and ``snappy.wait``, through the
 shared helpers.  ``COUNTERS`` counts, always, the bytes the calls were
 asked for and the bytes they copied each way, and the native calls'
-wall and process CPU time.
+wall and process CPU time; ``FRAMED`` the chunks whose framed record
+the device wrote.
 """
 
 from __future__ import annotations
@@ -142,6 +144,7 @@ from snappy_tpu_torch.kernels.decode_pretagged import (
 )
 from snappy_tpu_torch.kernels.decode_seq import ERR_MESSAGES, decode_blocks_seq
 from snappy_tpu_torch.kernels.encode_seq import comp_width, encode_blocks_seq
+from snappy_tpu_torch.kernels.frame_records import frame_records
 from snappy_tpu_torch.spec import reference as _reference
 from snappy_tpu_torch.utils.trace import span
 
@@ -183,6 +186,8 @@ ENCODE_REPLACED = {"not_ok": 0, "ratio_guard": 0}
 # whose ratio over the threads is their busy share
 COUNTERS = {"bytes": 0, "h2d_bytes": 0, "d2h_bytes": 0,
             "native_wall_ns": 0, "native_cpu_ns": 0}
+# chunks whose framed record the device wrote (``_compress_framed_seq``)
+FRAMED = {"device_framed_chunks": 0}
 
 
 def _entry(fn):
@@ -1411,63 +1416,62 @@ def _framed_record(chunk_len: int, elem: bytes, crc: int, raw) -> bytes:
             + mask_crc(crc).to_bytes(4, "little") + body)
 
 
-def _encode_seq(src, cs: int, device, with_crc: bool):
-    """Device LZ engine: yield (chunk_index, chunk_len, element, crc,
-    stored) for the cs-byte chunks of ``src``, host bytes or a flat
-    uint8 tensor on ``device``.
+def _seq_rows(src, lo: int, nb: int, cnt: int, cs: int, hs: _HostSet,
+              device) -> torch.Tensor:
+    """Rows [cnt, cs] of the chunks ``src[lo : lo + nb]`` for the seq
+    encoder: host bytes (a numpy array) staged in ``hs``'s pinned
+    ``blocks`` and uploaded, or cut from the device tensor in place."""
+    if isinstance(src, torch.Tensor):
+        return _device_rows(src, lo, nb, cnt, cs, cs)
+    hs.np["blocks"][:nb] = src[lo : lo + nb]
+    return _upload(hs.t["blocks"][: cnt * cs], device).view(cnt, cs)
+
+
+def _encode_seq(src, cs: int, device, with_chunks: bool):
+    """Device LZ engine: yield (chunk_index, chunk_len, element, chunk)
+    for the cs-byte chunks of ``src``, host bytes or a flat uint8 tensor
+    on ``device``; ``chunk`` is the chunk's bytes where ``with_chunks``
+    asks for them and ``src`` is on the device (the host CRCs them),
+    else None.
 
     Host bytes go up through pinned rows; a device tensor is encoded in
-    place.  The sequential kernel encodes each batch of chunk rows, and
-    with ``with_crc`` the CRC kernel checksums them (``crc`` is else
-    None).  What comes back is each batch's lengths and CRCs, then its
-    elements cut to the batch's longest; the trimmed fetch of batch k is
-    queued while batch k+1 is staged, when its lengths are on the host.
-    A device tensor's chunk bytes also come back (``stored``, else None)
-    where the host needs them: for chunks the framed format stores
-    uncompressed, and for every chunk when the host CRCs them."""
+    place.  The sequential kernel encodes each batch of chunk rows.  What
+    comes back is each batch's lengths, then its elements cut to the
+    batch's longest (and with ``with_chunks`` the batch's bytes, in one
+    copy); the trimmed fetch of batch k is queued while batch k+1 is
+    staged, when its lengths are on the host.  The framed encode with
+    the CRCs on the device is ``_compress_framed_seq``."""
     on_dev = isinstance(src, torch.Tensor)
     n = int(src.numel()) if on_dev else len(src)
     n_chunks = -(-n // cs)
     if n_chunks == 0:
         return
+    chunks = with_chunks and on_dev
     with span("snappy.alloc"):
         step = _seq_width(_eseq.resident_rows, device, cs)
         rows_n = min(step, n_chunks)
         cap = comp_width(cs)
         shapes = dict(lens=((rows_n,), torch.int32),
                       clens=((rows_n,), torch.int32),
-                      crc=((rows_n,), torch.int64),
                       comp=((rows_n * cap,), torch.uint8))
-        # device input: rows the host fetches; host input: pinned staging rows
-        shapes["stored" if on_dev else "blocks"] = ((rows_n * cs,),
-                                                    torch.uint8)
+        # device input: the chunks the host fetches; host input: staging
+        if chunks or not on_dev:
+            shapes["chunks" if on_dev else "blocks"] = ((rows_n * cs,),
+                                                        torch.uint8)
         sets = _host_sets(device, **shapes)
-        src_np = None if on_dev else np.frombuffer(src, np.uint8)
-    pending = []
-
-    def rows_of(lo: int, nb: int, cnt: int, hs: _HostSet) -> torch.Tensor:
         if not on_dev:
-            hs.np["blocks"][:nb] = src_np[lo : lo + nb]
-            return _upload(hs.t["blocks"][: cnt * cs], device).view(cnt, cs)
-        return _device_rows(src, lo, nb, cnt, cs, cs)
+            src = np.frombuffer(src, np.uint8)
+    pending = []
 
     def fetch(b: dict) -> None:
         if b["kmax"] is not None:
             return
         with span("snappy.enqueue"):
-            hs, cnt, lens = b["hs"], b["cnt"], b["lens"]
-            hs.wait()  # its lengths (and CRCs) are on the host
-            clens = hs.np["clens"][:cnt]
-            kmax = min((int(clens.max()) + 511) & ~511, cap)
+            hs, cnt = b["hs"], b["cnt"]
+            hs.wait()  # its lengths are on the host
+            kmax = min((int(hs.np["clens"][:cnt].max()) + 511) & ~511, cap)
             _fetch(hs.t["comp"][: cnt * kmax].view(cnt, kmax),
                    b["comp"][:, :kmax].contiguous())
-            if on_dev:
-                b["stored"] = {i for i in range(cnt)
-                               if not with_crc or _stored(int(lens[i]),
-                                                          int(clens[i]))}
-                for i in b["stored"]:
-                    _fetch(hs.t["stored"][i * cs : i * cs + lens[i]],
-                           b["rows"][i, : lens[i]])
             hs.record()
         b["kmax"] = kmax
 
@@ -1483,17 +1487,17 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
             with span("snappy.stage"):
                 lens = _chunk_lens(nb, cnt, cs)
                 hs.np["lens"][:cnt] = lens
-                rows = rows_of(lo, nb, cnt, hs)
+                rows = _seq_rows(src, lo, nb, cnt, cs, hs, device)
             if pending:
                 fetch(pending.pop())
             lens_d = _upload(hs.t["lens"][:cnt], device)
             comp, clens, _err = encode_blocks_seq(rows, lens_d)  # valid lens
             _fetch(hs.t["clens"][:cnt], clens)
-            if with_crc:
-                _fetch(hs.t["crc"][:cnt], crc32c_chunks(rows, lens_d))
+            if chunks:
+                _fetch(hs.t["chunks"][:nb], src[lo : lo + nb])
             hs.record()
-            b = dict(base=base, cnt=cnt, hs=hs, rows=rows, comp=comp,
-                     lens=lens, kmax=None, stored=set())
+            b = dict(base=base, cnt=cnt, hs=hs, comp=comp, lens=lens,
+                     kmax=None)
             pending.append(b)
         return b
 
@@ -1510,10 +1514,104 @@ def _encode_seq(src, cs: int, device, with_crc: bool):
                 ln = int(b["lens"][i])
                 yield (b["base"] + i, ln,
                        comp[i, : hs.np["clens"][i]].tobytes(),
-                       int(hs.np["crc"][i]) if with_crc else None,
-                       hs.np["stored"][i * cs : i * cs + ln]
-                       if i in b["stored"] else None)
+                       hs.np["chunks"][i * cs : i * cs + ln]
+                       if chunks else None)
     _release(sets)
+
+
+def _compress_framed_seq(src, cs: int, device) -> bytes:
+    """Device LZ engine, framed, with the CRCs on the device: the framed
+    stream of the cs-byte chunks of ``src``, host bytes or a flat uint8
+    tensor on ``device``.
+
+    Each batch of chunk rows, staged as ``_encode_seq`` stages it, is
+    encoded (``encode_blocks_seq``) and checksummed (``crc32c_chunks``),
+    and ``frame_records`` writes its records on the device, one after
+    another.  Only their end offsets come back with the batch.  Once
+    they are on the host, while the next batch is staged, one copy
+    brings the batch's records into its set's pinned ``framed`` buffer
+    (a batch's worth: the pinned memory does not grow with the input),
+    and once the next batch is queued the host copies them on into the
+    result, a ``bytes`` of the stream's bound filled in place and cut
+    to the stream's length (``native._fill_bytes_exact``, plain C-API
+    calls that need no native library): one host copy of the stream.
+    ``FRAMED["device_framed_chunks"]`` counts the records."""
+    on_dev = isinstance(src, torch.Tensor)
+    n = int(src.numel()) if on_dev else len(src)
+    n_chunks = -(-n // cs)
+    if n_chunks == 0:
+        return bytes(STREAM_ID_CHUNK)
+    head = len(STREAM_ID_CHUNK)
+    with span("snappy.alloc"):
+        step = _seq_width(_eseq.resident_rows, device, cs)
+        rows_n = min(step, n_chunks)
+        # a record is its chunk's bytes at most, plus an 8-byte header
+        shapes = dict(lens=((rows_n,), torch.int32),
+                      ends=((rows_n,), torch.int64),
+                      framed=((rows_n * (cs + 8),), torch.uint8))
+        if not on_dev:
+            shapes["blocks"] = ((rows_n * cs,), torch.uint8)
+            src = np.frombuffer(src, np.uint8)
+        sets = _host_sets(device, **shapes)
+    bound = head + n + 8 * n_chunks
+
+    def fetch(b: dict) -> None:
+        """Queue the copy of batch b's records, its ends on the host."""
+        with span("snappy.enqueue"):
+            hs = b["hs"]
+            hs.wait()
+            b["total"] = int(hs.np["ends"][b["cnt"] - 1])
+            _fetch(hs.t["framed"][: b["total"]], b["framed"][: b["total"]])
+            hs.record()
+
+    def finish(b: dict, stream: np.ndarray, pos: int) -> int:
+        """Copy batch b's records on into ``stream`` at ``pos``, once
+        they are in; the stream's new length."""
+        with span("snappy.finish"):
+            hs, total = b["hs"], b["total"]
+            hs.wait()
+            stream[pos : pos + total] = hs.np["framed"][:total]
+        return pos + total
+
+    # a batch's spans nest in one enqueue span
+    def dispatch(k: int, base: int, prev) -> dict:
+        """Stage and queue batch k, and the fetch of batch k-1."""
+        with span("snappy.enqueue"):
+            cnt = min(step, n_chunks - base)
+            lo = base * cs
+            nb = min(n, lo + cnt * cs) - lo
+            hs = sets[k % _NSETS]
+            hs.wait()
+            with span("snappy.stage"):
+                hs.np["lens"][:cnt] = _chunk_lens(nb, cnt, cs)
+                rows = _seq_rows(src, lo, nb, cnt, cs, hs, device)
+            if prev is not None:
+                fetch(prev)  # batch k-1's records, once batch k is staged
+            lens_d = _upload(hs.t["lens"][:cnt], device)
+            comp, clens, _err = encode_blocks_seq(rows, lens_d)  # valid lens
+            framed, ends = frame_records(rows, lens_d, comp, clens,
+                                         crc32c_chunks(rows, lens_d))
+            _fetch(hs.t["ends"][:cnt], ends)
+            hs.record()
+            FRAMED["device_framed_chunks"] += cnt
+        return dict(cnt=cnt, hs=hs, framed=framed)
+
+    def fill(ptr) -> int:
+        """Write the stream at ``ptr`` (``bound`` bytes); its length."""
+        stream = np.ctypeslib.as_array(ptr, shape=(bound,))
+        stream[:head] = np.frombuffer(STREAM_ID_CHUNK, np.uint8)
+        pos, prev = head, None
+        for k, base in enumerate(range(0, n_chunks, step)):
+            cur = dispatch(k, base, prev)
+            if prev is not None:
+                pos = finish(prev, stream, pos)  # while the device runs k
+            prev = cur
+        fetch(prev)
+        return finish(prev, stream, pos)
+
+    out = native._fill_bytes_exact(bound, fill)
+    _release(sets)
+    return out
 
 
 @_entry
@@ -1532,10 +1630,17 @@ def compress(data: bytes, device=None) -> bytes:
         for _, _, blob, _, _ in _encode_jnp(data, MAX_BLOCK_SIZE, device):
             out += blob
     else:
-        for _, _, elem, _, _ in _encode_seq(data, MAX_BLOCK_SIZE, device,
-                                            with_crc=False):
+        for _, _, elem, _ in _encode_seq(data, MAX_BLOCK_SIZE, device,
+                                         with_chunks=False):
             out += elem
     return bytes(out)
+
+
+def _frames_on_device(engine: str) -> bool:
+    """Whether a framed encode writes its records on the device
+    (``_compress_framed_seq``): the seq engine with its CRCs on the
+    device, which it always has without the native library."""
+    return engine == "seq" and (DEVICE_CRC or not native.available())
 
 
 @_entry
@@ -1543,11 +1648,13 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
                     device=None) -> bytes:
     """Framed (.sz) stream.  Id mode with 64 KiB chunks: device CRCs
     plus one native matcher-and-assembly call per batch.  Device LZ
-    engine: elements and CRCs from the device (``_encode_seq``).  jnp
-    engine: elements from ``_encode_jnp`` with host CRCs, as in the JAX
-    package.  Otherwise chunk elements from ``_encode_batches`` with
-    host CRCs.  Without the native library every CRC comes from the CRC
-    kernel, beside the jnp or seq engine's encode of the same rows."""
+    engine: elements, CRCs and the records themselves from the device
+    (``_compress_framed_seq``); with ``DEVICE_CRC`` off, elements from
+    ``_encode_seq`` with host CRCs.  jnp engine: elements from
+    ``_encode_jnp`` with host CRCs, as in the JAX package.  Otherwise
+    chunk elements from ``_encode_batches`` with host CRCs.  Without the
+    native library every CRC comes from the CRC kernel, beside the jnp
+    or seq engine's encode of the same rows."""
     if not 0 < chunk_size <= MAX_CHUNK_UNCOMPRESSED:
         raise ValueError(f"chunk_size must be in (0, 65536], got {chunk_size}")
     COUNTERS["bytes"] += len(data)
@@ -1556,14 +1663,18 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
     if (engine == "flat" and FLAT_MODE == "id"
             and chunk_size == MAX_CHUNK_UNCOMPRESSED and len(data)):
         return _compress_framed_id(data, device)
+    if _frames_on_device(engine):
+        return _compress_framed_seq(data, chunk_size, device)
     if engine == "flat":
         chunks = ((idx, ln, blob, None) for idx, ln, blob
                   in _encode_batches(data, chunk_size, device))
-    else:
-        encode = _encode_jnp if engine == "jnp" else _encode_seq
-        with_crc = not native.available() or (engine == "seq" and DEVICE_CRC)
+    elif engine == "jnp":
         chunks = ((idx, ln, elem, crc) for idx, ln, elem, crc, _
-                  in encode(data, chunk_size, device, with_crc))
+                  in _encode_jnp(data, chunk_size, device,
+                                 not native.available()))
+    else:  # seq, host CRCs
+        chunks = ((idx, ln, elem, None) for idx, ln, elem, _
+                  in _encode_seq(data, chunk_size, device, with_chunks=False))
     data_v = memoryview(data)
     out = bytearray(STREAM_ID_CHUNK)
     for idx, chunk_len, blob, crc in chunks:
@@ -1636,12 +1747,14 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     native matcher and assembler of batch k.  Byte-identical to
     ``compress_framed(bytes(arr))`` in id mode: same matcher, same CRCs.
     Device LZ engine: the tensor's chunks are encoded and CRC'd where
-    they lie (``_encode_seq``); only elements and CRCs come back, plus
-    the bytes of chunks stored uncompressed.  The jnp engine takes the
-    id path, as the JAX package does.  Without the native library the
-    jnp engine (or the seq engine, where it is picked) encodes the
-    tensor's chunks in place and the CRC kernel checksums them: the
-    bytes of ``compress_framed(bytes(arr))``."""
+    they lie and their records written on the device
+    (``_compress_framed_seq``): only the stream comes back; with
+    ``DEVICE_CRC`` off, the elements and every chunk's bytes come back
+    (``_encode_seq``) and the host CRCs and frames them.  The jnp engine
+    takes the id path, as the JAX package does.  Without the native
+    library the jnp engine (or the seq engine, where it is picked)
+    encodes the tensor's chunks in place and the CRC kernel checksums
+    them: the bytes of ``compress_framed(bytes(arr))``."""
     _check_uint8(arr)
     with span("snappy.alloc"):
         device = arr.device if device is None else resolve(device)
@@ -1652,14 +1765,19 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
         return bytes(STREAM_ID_CHUNK)
     cs = MAX_CHUNK_UNCOMPRESSED
     engine = _encode_engine()
+    if _frames_on_device(engine):
+        return _compress_framed_seq(arr, cs, device)
     if engine == "seq" or not native.available():
-        encode = _encode_seq if engine == "seq" else _encode_jnp
+        if engine == "seq":  # host CRCs of the chunks' bytes
+            recs = ((ln, elem, native.crc32c(chunk.tobytes()), chunk)
+                    for _, ln, elem, chunk
+                    in _encode_seq(arr, cs, device, with_chunks=True))
+        else:  # device CRCs; the stored chunks' bytes come back
+            recs = ((ln, elem, crc, stored) for _, ln, elem, crc, stored
+                    in _encode_jnp(arr, cs, device, with_crc=True))
         out = bytearray(STREAM_ID_CHUNK)
-        for _, ln, elem, crc, stored in encode(
-                arr, cs, device, DEVICE_CRC or not native.available()):
-            if crc is None:
-                crc = native.crc32c(stored.tobytes())
-            out += _framed_record(ln, elem, crc, stored)
+        for ln, elem, crc, raw in recs:
+            out += _framed_record(ln, elem, crc, raw)
         with span("snappy.finish"):
             return bytes(out)
     n_chunks = -(-n // cs)
@@ -1720,10 +1838,11 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     if engine == "seq" or not native.available():
         device = arr.device if device is None else resolve(device)
         arr = arr.to(device).reshape(-1)
-        encode = _encode_seq if engine == "seq" else _encode_jnp
+        elems = (_encode_seq(arr, MAX_BLOCK_SIZE, device, with_chunks=False)
+                 if engine == "seq" else _encode_jnp(arr, MAX_BLOCK_SIZE,
+                                                     device))
         out = bytearray(put_uvarint(int(arr.numel())))
-        for _, _, elem, _, _ in encode(arr, MAX_BLOCK_SIZE, device,
-                                       with_crc=False):
+        for _, _, elem, *_ in elems:
             out += elem
         return bytes(out)
     if device is not None:

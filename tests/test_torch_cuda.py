@@ -23,6 +23,7 @@ from snappy_tpu_torch.kernels import decode_seq as kds
 from snappy_tpu_torch.kernels import decode_wavegroup as kw
 from snappy_tpu_torch.kernels import encode_flat as ke
 from snappy_tpu_torch.kernels import encode_seq as kes
+from snappy_tpu_torch.kernels import frame_records as kfr
 from snappy_tpu_torch.kernels import match as km
 from snappy_tpu_torch.runtime import device_codec as dc
 
@@ -397,6 +398,54 @@ def test_seq_encode_kernel_at_engine_width(cuda_device, rng, extra):
         assert comp_h[i, : clens_h[i]].tobytes() == nat[read_uvarint(nat, 0)[1] :]
 
 
+@pytest.mark.parametrize("row_off,comp_off", [(0, 0), (5, 3)])
+def test_frame_records_kernel_matches_plain(cuda_device, rng, row_off,
+                                            comp_off):
+    """The framed-record kernel on a batch of the seq engine's width (the
+    card's resident rows): corpus chunks, incompressible (stored) chunks,
+    short chunks of each varint width, and four rows' element lengths
+    set at the 12.5% boundary; the chunk rows and the elements at the
+    runtime's alignment and at odd byte offsets.  Equal to the plain
+    version and to the host's ``_framed_record`` a row; one launch."""
+    width = kes.resident_rows(cuda_device, 65536)
+    data = _corpus(23, 64 << 16)
+    samples = [data[i << 16 : (i + 1) << 16] for i in range(64)]
+    samples += [rng.bytes(65536), rng.bytes(65536), rng.bytes(100),
+                rng.bytes(10_000), b"q" * 100, b"w" * 10_000, b"e" * 16384,
+                rng.bytes(1), data[:127], data[:16383], data[:16384]]
+    idx = _wide_rows(width, len(samples))
+    lens = np.array([len(samples[i]) for i in idx], np.int32)
+    host = np.zeros((width, 65536), np.uint8)
+    for r, i in enumerate(idx):
+        host[r, : lens[r]] = np.frombuffer(samples[i], np.uint8)
+    aligned = torch.from_numpy(host).to(cuda_device)
+    flat = torch.zeros(row_off + width * 65536, dtype=torch.uint8,
+                       device=cuda_device)
+    flat[row_off:] = aligned.reshape(-1)
+    rows = flat[row_off:].view(width, 65536)
+    lens_d = torch.from_numpy(lens).to(cuda_device)
+    comp, clens, _err = kes.encode_blocks_seq(aligned, lens_d)
+    crc = kc.crc32c_chunks(aligned, lens_d)
+    for r, below in enumerate((0, 1, 0, 1)):  # 64 KiB corpus rows
+        clens[r] = 65536 - 65536 // 8 - 3 - below
+    comp = comp[:, comp_off:]
+    before = kfr.launches
+    framed, ends = kfr.frame_records(rows, lens_d, comp, clens, crc)
+    torch.cuda.synchronize()
+    assert kfr.launches == before + 1
+    pframed, pends = kfr.frame_records_plain(rows, lens_d, comp, clens, crc)
+    total = int(ends[-1])
+    assert torch.equal(ends, pends)
+    assert torch.equal(framed[:total], pframed[:total])
+    comp_h, clens_h, crc_h = (t.cpu().numpy() for t in (comp, clens, crc))
+    recs = [dc._framed_record(int(lens[r]), comp_h[r, : clens_h[r]].tobytes(),
+                              int(crc_h[r]), host[r, : lens[r]])
+            for r in range(width)]
+    assert [rec[0] for rec in recs[:4]] == [1, 0, 1, 0]
+    assert {rec[0] for rec in recs} == {0, 1}
+    assert framed[:total].cpu().numpy().tobytes() == b"".join(recs)
+
+
 @pytest.mark.parametrize("mode", ["id", "classify", "seq"])
 def test_main_path_through_kernels(cuda_device, mode, monkeypatch, rng):
     if mode == "seq":
@@ -407,7 +456,7 @@ def test_main_path_through_kernels(cuda_device, mode, monkeypatch, rng):
     monkeypatch.setattr(dc, "BATCH", 8)
     data = _corpus(17, 3 << 20) + rng.bytes(100_000)
     crc0, flat0 = kc.launches, kf.launches
-    seq0 = kds.launches, kes.launches
+    seq0 = kds.launches, kes.launches, kfr.launches
     stream = dc.compress_framed(data, device=cuda_device)
     assert stream == native.compress_framed(data)
     arr = dc.decompress_framed_to_device(stream, device=cuda_device)
@@ -423,6 +472,7 @@ def test_main_path_through_kernels(cuda_device, mode, monkeypatch, rng):
         assert kf.launches > flat0
     if mode == "seq":
         assert kds.launches > seq0[0] and kes.launches > seq0[1]
+        assert kfr.launches > seq0[2]  # the records written on the card
         broken = bytearray(stream)
         chunks, _ = dc._scan_frames(stream)
         _t, p_off, _l, _c, _d, hdr = next(c for c in chunks if c[0] == 0)

@@ -166,6 +166,62 @@ def test_seq_engine_at_a_wide_launch_width(nprng, monkeypatch, width):
     assert dc.compress(data, device="cpu") == native.compress(data)
 
 
+@pytest.mark.parametrize("width", [3, 5])
+@pytest.mark.parametrize("path", ["seq", "seq, host CRCs", "id"])
+def test_framed_records_written_on_the_device(nprng, monkeypatch, width,
+                                              path):
+    """The seq engine with device CRCs writes every framed record on the
+    device (``frame_records``), at launch widths other than BATCH, the
+    last batch ragged; the seq engine with host CRCs and the id engine
+    assemble them on the host.  Every stream equals
+    native.compress_framed, stored chunks and short last chunks too."""
+    if path != "id":
+        monkeypatch.setattr(dc, "FLAT", False)
+        monkeypatch.setattr(dc, "HOST_PARSE", False)
+        monkeypatch.setattr(dc, "_seq_width", lambda *a: width)
+    monkeypatch.setattr(dc, "DEVICE_CRC", path != "seq, host CRCs")
+    data = (b"framed on the device " * 30_000 + nprng.bytes(70_000)
+            + b"tail" * 30)[: 65536 * 10 + 120]
+    n_chunks = -(-len(data) // 65536)
+    want = native.compress_framed(data)
+    before = dc.FRAMED["device_framed_chunks"]
+    assert dc.compress_framed_from_device(_tensor(data)) == want
+    assert dc.compress_framed(data, device="cpu") == want
+    moved = dc.FRAMED["device_framed_chunks"] - before
+    assert moved == (2 * n_chunks if path == "seq" else 0)
+
+
+@pytest.mark.parametrize("call", ["from_device", "host bytes"])
+def test_framed_records_pin_a_batch_not_the_stream(nprng, monkeypatch, call):
+    """The seq engine's framed encode with device CRCs asks for the same
+    pinned memory (every allocation made with a ``pin_memory`` argument,
+    pinned on a GPU) for 6 chunks as for 40: its host sets, a launch's
+    rows each, and no buffer of the stream's size."""
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", False)
+    monkeypatch.setattr(dc, "DEVICE_CRC", True)
+    monkeypatch.setattr(dc, "_seq_width", lambda *a: 3)
+    empty, asked = torch.empty, []
+
+    def spy(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        if "pin_memory" in kwargs:
+            asked[-1] += t.numel() * t.element_size()
+        return t
+
+    monkeypatch.setattr(torch, "empty", spy)
+    for k in (6, 40):
+        data = (b"pinned by the batch " * 4000 + nprng.bytes(40_000)) * k
+        data = data[: 65536 * k - 77]
+        asked.append(0)
+        out = (dc.compress_framed_from_device(_tensor(data))
+               if call == "from_device"
+               else dc.compress_framed(data, device="cpu"))
+        assert out == native.compress_framed(data)
+    staged = 3 * 65536 if call == "host bytes" else 0
+    assert asked == [dc._NSETS * (3 * (4 + 8 + 65536 + 8) + staged)] * 2
+
+
 def _both_raise(exc, fn_port, fn_jax):
     """fn_port raises the port's class exc, fn_jax the JAX package's."""
     with pytest.raises(exc):

@@ -65,3 +65,22 @@ def test_decode_pretagged_bytes():
     out = kp.decode_blocks_pretagged(*args, out_max=out_max)
     assert kernel_bytes("decode_pretagged", args, out_max) == (
         16 * int(nt[0]) + lit + _nbytes(args[2], args[3]) + _nbytes(out))
+
+
+def test_frame_records_bytes():
+    """Each record's body read (the stored chunk or the element), a
+    length, an element length and a CRC a row; the records and an end
+    offset a row written."""
+    from snappy_tpu_torch.kernels import frame_records as kfr
+
+    blocks, lens = _blocks(11, 4, 1024)
+    comp = torch.zeros(4, 1400, dtype=torch.uint8)
+    clens = torch.tensor([10, 1000, 1023, 0], dtype=torch.int32)
+    crc = torch.zeros(4, dtype=torch.int64)
+    args = (blocks, lens, comp, clens, crc)
+    framed, ends = kfr.frame_records(*args)
+    _n, _c, vlen, raw, _body = kfr.layout(lens, clens, 1024, 1400)
+    bodies = sum(int(lens[i]) if raw[i] else int(clens[i]) for i in range(4))
+    assert raw.any() and not raw.all()
+    assert kernel_bytes("frame_records", args) == (
+        bodies + _nbytes(lens, clens, crc) + int(ends[-1]) + _nbytes(ends))

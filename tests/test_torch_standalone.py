@@ -35,7 +35,7 @@ MODULES = [
     "kernels.decode_flat", "kernels.decode_par", "kernels.decode_pretagged",
     "kernels.decode_seq", "kernels.decode_wavegroup", "kernels.encode_flat",
     "kernels.encode_np", "kernels.encode_par", "kernels.encode_seq",
-    "kernels.match",
+    "kernels.frame_records", "kernels.match",
     "spec", "spec.crc32c", "spec.format", "spec.framing", "spec.reference",
     "bench.corpus", "bench.kernel_cost", "bench.pretagged_profile",
     "bench.seq_profile",
