@@ -1637,14 +1637,25 @@ def dist_phase(card, dev, mib: int, seed: int):
             lo, hi = k * per, min((k + 1) * per, b)
             want = flat[lo << 16 : min(hi << 16, n)]
             got = s.reshape(-1)
-            assert s.device == d and torch.equal(got[: want.numel()], want), \
+            assert s.device == d and torch.equal(got[: want.numel()],
+                                                 want.to(d)), \
                 f"{name}: shard {k} != decompress_framed_to_device"
             assert not got[want.numel():].any(), f"{name}: shard {k} tail"
+        shards0 = {k: list(v) + [0] * mesh.size for k, v in dm.SHARDS.items()}
         fr2, secs, counts[f"{name}.compress"] = counted(
             card, f"{name} sharded_compress_framed_from_device",
             lambda: dm.sharded_compress_framed_from_device(mesh, rows, dlens))
         rates[f"{name}.compress_framed_from_device"] = n / secs / 1e9
         assert fr2 == ref, f"{name}: from-device stream != native"
+        # each mesh position's card: its CRC launches and the bytes it
+        # sent to the host in that call (dist.mesh.SHARDS)
+        by_card = {k: [v[i] - shards0[k][i] for i in range(mesh.size)]
+                   for k, v in dm.SHARDS.items()}
+        log(card, f"{name}: per card {[str(d) for d in mesh.devices]}: CRC "
+                  f"launches {by_card['crc_launches']}, D2H bytes "
+                  f"{by_card['d2h_bytes']}")
+        assert all(by_card["crc_launches"]) and all(by_card["d2h_bytes"]), (
+            f"{name}: a card of the mesh did no work: {by_card}")
         if label == "mesh1":
             # the card's share of a loader call, and its CRC launch alone
             # (the profiler's records counted: it drops some now and then)
@@ -1653,7 +1664,8 @@ def dist_phase(card, dev, mib: int, seed: int):
                 PROFILER_KEYS["crc32c_rows"])
             lens_p = np.zeros(rows.shape[0], np.int32)
             lens_p[:b] = dlens
-            crc_args = (rows.shards[0], torch.from_numpy(lens_p).to(dev))
+            crc_args = (rows.shards[0],
+                        torch.from_numpy(lens_p[:per]).to(rows.shards[0].device))
             crc = kernel_cost.profiled(lambda: crc32c_chunks(*crc_args), 20,
                                        PROFILER_KEYS["crc32c_rows"])
             bound = (kernel_cost.kernel_bytes("crc32c_rows", crc_args)
@@ -1663,7 +1675,7 @@ def dist_phase(card, dev, mib: int, seed: int):
                       f"the CRC launch and the copies; {busy['kernel_records']}"
                       f" of {mesh.size} CRC records) of "
                       f"{n / rates[f'{name}.decompress_framed_to_device'] / 1e6:.1f} "
-                      f"ms; its CRC launch over {rows.shape[0]} rows "
+                      f"ms; its CRC launch over {per} rows "
                       f"{crc['kernel_ms_mean']} ms on the card (the mean of "
                       f"{crc['kernel_records']} records of 20 launches), "
                       f"bound {bound:.4f} ms")
@@ -1740,7 +1752,7 @@ def dist_phase(card, dev, mib: int, seed: int):
             assert f.read() == ref, "multihost device entry points' stream"
         for i, (stats, report) in enumerate(res):
             assert report["device"] == str(dev), report
-            assert stats["mesh"] == f"Mesh(['{dev}'])", stats
+            assert stats["mesh"] == str(dm.make_mesh()), stats
             assert report["launches"]["crc32c_rows"] > 0, report
             counts[f"dist.devices.rank{i}"] = report["launches"]
         rates["dist.devices"] = n / wall / 1e9

@@ -192,11 +192,19 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
         data, verify_checksums, device=device)
 
 
-def compress_framed_from_device(arr: torch.Tensor, *, device=None) -> bytes:
+def compress_framed_from_device(arr, lens=None, *, device=None) -> bytes:
     """Compress a uint8 device tensor into a framed (.sz) stream, each
     chunk's CRC-32C computed on the device.  Byte-identical to
-    ``compress_framed(bytes(arr))``."""
-    return device_codec.compress_framed_from_device(arr, device=device)
+    ``compress_framed(bytes(arr))``.
+
+    With ``lens``, ``arr`` is a ``dist.mesh.ShardedRows`` of 64 KiB chunk
+    rows laid out over several devices (as
+    ``dist.mesh.sharded_decompress_framed_to_device`` returns them) and
+    ``lens`` the valid bytes of its first ``len(lens)`` rows: each shard
+    is encoded on its own device, and the stream holds the rows' chunks
+    in row order, the bytes of ``compress_framed`` of the rows' bytes
+    where every row but the last is a full chunk."""
+    return device_codec.compress_framed_from_device(arr, lens, device=device)
 
 
 def compress_from_device(arr: torch.Tensor, *, device=None) -> bytes:

@@ -22,11 +22,16 @@ run each device's part; here the layout is explicit:
   - ``roundtrip_step`` has the one cross-shard result: the exclusive
     scan of the compressed lengths and the all-shards match flag, for
     which the per-shard lengths and flags go to the mesh's first device.
+  - The from-device encode forms are the runtime's
+    ``compress_framed_from_device`` of a ``ShardedRows`` and its rows'
+    lengths: each shard goes through the engine's single-card path on its
+    own device (``framed_parts`` cuts the shards into its inputs;
+    ``SHARDS`` counts each mesh position's copies and CRC launches).
   - Without the native library the loader's id stager decodes each chunk
     on the host (``device_codec.stage_id_rows``), the from-device encode
-    forms take each shard's sequential encoder (``encode_blocks_seq``)
-    for the elements, and the flat and id stagers raise, as the JAX
-    package's need its library too.
+    forms take the sequential encoder's element (``encode_blocks_seq``,
+    the seq engine's path), and the flat and id stagers raise, as the
+    JAX package's need its library too.
 """
 
 from __future__ import annotations
@@ -56,14 +61,10 @@ from snappy_tpu_torch.kernels.encode_flat import (
     TAG_ROWS,
     encode_blocks_flat,
 )
-from snappy_tpu_torch.kernels.encode_seq import encode_blocks_seq
 from snappy_tpu_torch.runtime.device_codec import (
     _ID_ROWS,
-    _fetch_rows,
-    _framed_record,
     _native,
     _scan_frames,
-    _stored,
     stage_id_rows,
 )
 from snappy_tpu_torch.spec.format import (
@@ -87,6 +88,9 @@ __all__ = [
     "sharded_decompress_framed_to_device",
     "sharded_compress_framed_from_device",
     "sharded_encode_rows_to_chunks",
+    "framed_parts",
+    "split_records",
+    "SHARDS",
     "sharded_crc",
     "sharded_match",
     "stage_flat_dec_batch",
@@ -118,7 +122,8 @@ class Mesh:
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """A mesh over ``devices``, or over the local cards ``cuda:0 ..
     cuda:{n-1}`` (the first ``n_devices`` of them when given).  With no
-    ``devices`` and no card it raises: it never falls back to the CPU.
+    ``devices`` and no card, or fewer cards than ``n_devices``, it
+    raises: it never falls back to the CPU.
 
     ``devices`` may name any devices, repeats included: ``["cpu"] * 8``
     is the 8-shard mesh the tests run on the CPU, and ``["cuda:0"] * 2``
@@ -132,6 +137,9 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
         if n_devices is not None:
+            if n_devices > len(devices):
+                raise RuntimeError(f"make_mesh: {n_devices} cards asked "
+                                   f"for, {len(devices)} visible")
             devices = devices[:n_devices]
     return Mesh(devices)
 
@@ -549,113 +557,104 @@ def sharded_decompress_framed_to_device(
     return ShardedRows(mesh, [o for o, _ in res]), dlens[:B], min(B, b)
 
 
-def _reference_records(rows: ShardedRows, encs, lens_p: np.ndarray,
-                       crc: np.ndarray, b: int) -> list[bytes]:
-    """The framed records of rows[:b] from each shard's sequential-encoder
-    launch ``encs`` (the reference element of every chunk): per shard,
-    its element lengths, then its elements cut to its longest and the
-    rows the framed format stores uncompressed come to the host."""
-    per = rows.shape[0] // rows.mesh.size
-    clens = _host([c for _, c, _ in encs], b)
+# per position in a mesh, over the process: the bytes each shard's card
+# copied to the host and the CRC launches made on it, by the sharded
+# from-device encode (``framed_parts``' tallies); the lists grow to the
+# widest mesh that encoded
+SHARDS = {"d2h_bytes": [], "crc_launches": []}
+
+
+def _tally(k: int):
+    """The counter of mesh position ``k``: ``tally(d2h_bytes,
+    crc_launches)`` adds to ``SHARDS``."""
+    def tally(d2h_bytes: int, crc_launches: int) -> None:
+        SHARDS["d2h_bytes"][k] += d2h_bytes
+        SHARDS["crc_launches"][k] += crc_launches
+    return tally
+
+
+def framed_parts(rows: ShardedRows, lens):
+    """The pieces of the sharded from-device encode: (parts, total).
+
+    ``rows`` is a ``ShardedRows`` of uint8 [B, 65536] and ``lens`` the
+    valid bytes of rows [:len(lens)]; the rest are padding.  Each shard's
+    real rows are cut into runs that end at a row shorter than a chunk,
+    so that every row of a run but its last is a full chunk and the
+    run's bytes, its rows joined, are its rows' chunks.  A part is
+    (device, flat, tally): the run's bytes as one flat view of the shard
+    (no copy), the shard's device, and the counter of its mesh position
+    in ``SHARDS``.  Parts come in row order; a row of length 0 gives no
+    chunk.  ``total`` is the bytes of every row."""
+    if not isinstance(rows, ShardedRows):
+        raise ValueError(f"sharded rows must be a ShardedRows, got "
+                         f"{type(rows).__name__}")
+    lens = np.asarray(lens, np.int64).reshape(-1)
+    B, b = rows.shape[0], lens.size
+    if (rows.dtype != torch.uint8 or len(rows.shape) != 2
+            or rows.shape[1] != CHUNK or b > B):
+        raise ValueError(f"rows must be uint8 [B, {CHUNK}] with B >= {b}, "
+                         f"got {rows.dtype} {tuple(rows.shape)}")
+    if b and (lens.min() < 0 or lens.max() > CHUNK):
+        raise ValueError(f"row lengths must lie in [0, {CHUNK}]")
+    for counts in SHARDS.values():
+        counts.extend([0] * (rows.mesh.size - len(counts)))
+    per = B // rows.mesh.size
+    parts = []
+    for k, (shard, dev) in enumerate(zip(rows.shards, rows.mesh.devices)):
+        ln = lens[k * per : min((k + 1) * per, b)]
+        tally = _tally(k)
+        start = 0
+        for end in list(np.nonzero(ln < CHUNK)[0] + 1) + [ln.size]:
+            nb = int(ln[start:end].sum())
+            if nb:
+                parts.append((dev, shard[start:end].reshape(-1)[:nb], tally))
+            start = end
+    return parts, int(lens.sum())
+
+
+def split_records(stream: bytes, pos: int = 0) -> list[bytes]:
+    """The chunk records of a framed stream from ``pos`` on (header,
+    masked CRC and payload each)."""
     recs = []
-    for k, (s, (comp, _, _)) in enumerate(zip(rows.shards, encs)):
-        lo, hi = k * per, min((k + 1) * per, b)
-        if lo >= hi:
-            break
-        ln, cl = lens_p[lo:hi], clens[lo:hi]
-        elems = _fetch_rows(comp, list(range(hi - lo)), cl)
-        raw = _fetch_rows(s, [j for j in range(hi - lo)
-                              if _stored(int(ln[j]), int(cl[j]))], ln)
-        recs += [_framed_record(int(ln[j]), elems[j].tobytes(),
-                                int(crc[lo + j]), raw.get(j))
-                 for j in range(hi - lo)]
+    while pos < len(stream):
+        end = pos + 4 + int.from_bytes(stream[pos + 1 : pos + 4], "little")
+        recs.append(stream[pos:end])
+        pos = end
     return recs
-
-
-def _encode_records(mesh: Mesh, rows, lens) -> tuple[bytes, np.ndarray]:
-    """The framed records (no stream identifier) of rows[:len(lens)],
-    joined, and each record's length.  Each chunk's CRC-32C is computed
-    on its shard's device; the rows then come to the host for the
-    native matcher.  Without the native library each shard's device
-    encodes its chunks with the sequential encoder instead (the
-    reference element, which the JAX package's per-chunk oracle emits)
-    and only the elements and the stored chunks' bytes come back."""
-    rows = shard_rows(mesh, rows)
-    B, width = rows.shape
-    b = len(lens)
-    if rows.dtype != torch.uint8 or width != CHUNK or b > B:
-        raise ValueError(f"rows must be uint8 [B, {CHUNK}] with B >= "
-                         f"{b}, got {rows.dtype} {tuple(rows.shape)}")
-    lens_p = np.zeros(B, np.int32)
-    lens_p[:b] = lens
-    per = B // mesh.size
-    lens_d = [torch.from_numpy(lens_p[k * per:(k + 1) * per]).to(s.device)
-              for k, s in enumerate(rows.shards)]
-    crcs = [crc32c_chunks(s, ln) for s, ln in zip(rows.shards, lens_d)]
-    encs = None if native.available() else [
-        encode_blocks_seq(s, ln) for s, ln in zip(rows.shards, lens_d)]
-    if b == 0:
-        return b"", np.zeros(0, np.int64)
-    if encs is not None:
-        recs = _reference_records(rows, encs, lens_p,
-                                  _host(crcs, b).astype(np.uint32), b)
-        return b"".join(recs), np.array([len(r) for r in recs], np.int64)
-    nat = native
-    blocks = np.empty((b, CHUNK), np.uint8)
-    for k, s in enumerate(rows.shards):
-        lo, hi = k * per, min((k + 1) * per, b)
-        if lo < hi:
-            torch.from_numpy(blocks[lo:hi]).copy_(s[: hi - lo])
-    crc = _host(crcs, b).astype(np.uint32)
-    if bool(np.all(lens_p[: b - 1] == CHUNK)):
-        # full middle rows (the loader's contract): the fetched rows are
-        # the contiguous chunk byte stream, so matching, framing and
-        # assembly are one threaded native call with the device CRCs
-        # passed through; rec_lens splits it into per-chunk records
-        rl = np.zeros(b, np.uint64)
-        buf = nat.compress_framed_crc(
-            blocks.reshape(-1), int(lens_p[:b].sum()), crc, chunk_size=CHUNK,
-            threads=_threads(), write_id=False, rec_lens=rl)
-        return buf, rl.astype(np.int64)
-    lens64 = lens_p[:b].astype(np.int64)
-    clens64, hdrs64, rc64 = (np.zeros(b, np.int64) for _ in range(3))
-    elem_buf = np.empty((b, nat.max_compressed_length(CHUNK) + 8), np.uint8)
-    if nat.compress_batch(blocks, lens64, elem_buf, clens64, hdrs64, rc64,
-                          n_threads=_threads()):  # pragma: no cover
-        raise RuntimeError("native compressor rejected a block")
-    recs = [_framed_record(int(lens64[i]),
-                           elem_buf[i, hdrs64[i]:clens64[i]].tobytes(),
-                           int(crc[i]), blocks[i, : lens64[i]])
-            for i in range(b)]
-    return b"".join(recs), np.array([len(r) for r in recs], np.int64)
 
 
 def sharded_compress_framed_from_device(mesh: Mesh, rows, lens) -> bytes:
     """Stream-level from-device encode over the mesh (the encode half of
     the data loader; sharded_decompress_framed_to_device's (rows,
     dst_lens, b) go straight in): chunk rows lying sharded on the
-    devices become one framed stream.  Each chunk's CRC-32C runs on its
-    shard's device with no collective; the rows come to the host for
-    the threaded native matcher; assembly is in chunk order.
+    devices become one framed stream, through the runtime's
+    ``compress_framed_from_device`` of the rows and their lengths.  Each
+    shard is encoded on its own device, each chunk's CRC-32C there with
+    no collective; assembly is in chunk order.
 
     rows: uint8[B, 65536] (a ``ShardedRows``, laid out again over
     ``mesh`` if it is on another, or a tensor or array; B a mesh
     multiple, as the loader returns).  lens: int[b] valid bytes per
     row, b <= B; rows past b are padding and emit nothing.
     Byte-identical to compress_framed of the rows' bytes."""
-    return bytes(STREAM_ID_CHUNK) + _encode_records(mesh, rows, lens)[0]
+    from snappy_tpu_torch.runtime.device_codec import (
+        compress_framed_from_device,
+    )
+
+    return compress_framed_from_device(shard_rows(mesh, rows), lens)
 
 
 def sharded_encode_rows_to_chunks(mesh: Mesh, rows, lens) -> list[bytes]:
     """From-device encode to per-chunk framed records (header, masked
-    CRC and payload; no stream identifier): the composable form.
+    CRC and payload; no stream identifier): the composable form, one
+    entry a row of ``lens`` (b"" for a row of length 0).
     sharded_compress_framed_from_device prepends the stream identifier
     for a whole stream; multihost.host_compress_framed_from_device
     all-gathers the record lengths and writes records at global
     offsets."""
-    buf, rl = _encode_records(mesh, rows, lens)
-    offs = np.concatenate(([0], np.cumsum(rl)))
-    return [buf[offs[i]:offs[i + 1]] for i in range(len(rl))]
+    recs = iter(split_records(sharded_compress_framed_from_device(
+        mesh, rows, lens), len(STREAM_ID_CHUNK)))
+    return [next(recs) if ln else b"" for ln in np.asarray(lens).reshape(-1)]
 
 
 def sharded_crc(mesh: Mesh, blocks: np.ndarray, lens: np.ndarray):

@@ -124,11 +124,12 @@ def host_decompress_framed_to_device(src: bytes, process_id: int,
 
 def host_compress_framed_from_device(rows, lens: np.ndarray, mesh=None):
     """Encode this host's device-resident chunk rows into framed chunk
-    records: each chunk's CRC-32C runs on its device before the rows
-    leave it, the local native matcher emits, and the caller assembles
-    as with host_compress_framed: all-gather the lengths (the one
-    collective), exclusive-scan offsets, pwrite disjoint ranges.
-    Returns (bodies, lengths).
+    records through the runtime's ``compress_framed_from_device`` of
+    sharded rows (each shard on its own card, each chunk's CRC-32C there
+    before the rows leave it, the local native matcher framing), and the
+    caller assembles as with host_compress_framed: all-gather the
+    lengths (the one collective), exclusive-scan offsets, pwrite
+    disjoint ranges.  Returns (bodies, lengths).
 
     rows: uint8[B, 65536], a ``ShardedRows`` (as
     host_decompress_framed_to_device returns) or a tensor, laid out over
@@ -192,16 +193,12 @@ def host_compress_framed(data_local: bytes, chunk_start: int,
     (10 = the stream-identifier chunk, written by host 0).  The records
     are those of ``compress_framed`` in the runtime's engine (id: the
     CRCs on the device, the native matcher on the host)."""
+    from snappy_tpu_torch.dist.mesh import split_records
     from snappy_tpu_torch.runtime import device_codec
     from snappy_tpu_torch.spec.format import STREAM_ID_CHUNK
 
     fr = device_codec.compress_framed(data_local, chunk_size, device=device)
-    bodies = []
-    pos = len(STREAM_ID_CHUNK)
-    while pos < len(fr):
-        end = pos + 4 + (fr[pos + 1] | (fr[pos + 2] << 8) | (fr[pos + 3] << 16))
-        bodies.append(fr[pos:end])
-        pos = end
+    bodies = split_records(fr, len(STREAM_ID_CHUNK))
     lengths = np.array([len(b) for b in bodies], dtype=np.int64)
     return bodies, lengths
 

@@ -86,7 +86,10 @@ batch's pinned set), ``snappy.native`` (a threaded native call),
 (blocked on a batch's event) and ``snappy.finish`` (the checks and the
 assembly after it).  The id and seq engines' framed paths have every
 phase; the others ``snappy.alloc`` and ``snappy.wait``, through the
-shared helpers.  ``COUNTERS`` counts, always, the bytes the calls were
+shared helpers.  In the id engine's encode of chunk rows sharded over a
+mesh, a batch's copy off its card and the wait for it are
+``snappy.shard_fetch`` (``dist.mesh.SHARDS`` counts each card's bytes
+and CRC launches).  ``COUNTERS`` counts, always, the bytes the calls were
 asked for and the bytes they copied each way, and the native calls'
 wall and process CPU time; ``FRAMED`` the chunks whose framed record
 the device wrote.
@@ -94,6 +97,7 @@ the device wrote.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
@@ -288,15 +292,27 @@ class _HostSet:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(self.device))
 
-    def wait(self) -> None:
+    def wait(self, name: str = "snappy.wait") -> None:
+        """Block until the pending event has fired, inside the span
+        ``name``."""
         if self._event is not None:
-            with span("snappy.wait"):
+            with span(name):
                 self._event.synchronize()
             self._event = None
 
 
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _guard(device: torch.device):
+    """``device`` made the current card where it is one, else nothing:
+    launches, events and pinned buffers of a card other than the
+    current one go to that card and its current stream."""
+    return torch.cuda.device(device) if device.type == "cuda" else _NO_GUARD
+
+
 def _host_sets(device: torch.device, **shapes) -> list[_HostSet]:
-    with span("snappy.alloc"):
+    with span("snappy.alloc"), _guard(device):
         return [_HostSet(device, shapes) for _ in range(_NSETS)]
 
 
@@ -1519,10 +1535,13 @@ def _encode_seq(src, cs: int, device, with_chunks: bool):
     _release(sets)
 
 
-def _compress_framed_seq(src, cs: int, device) -> bytes:
+def _compress_framed_seq(parts, cs: int) -> bytes:
     """Device LZ engine, framed, with the CRCs on the device: the framed
-    stream of the cs-byte chunks of ``src``, host bytes or a flat uint8
-    tensor on ``device``.
+    stream of the cs-byte chunks of each of ``parts``, one part after
+    another.  A part is (device, src, tally): ``src`` host bytes or a
+    flat uint8 tensor on ``device``, and ``tally`` None or, for a shard
+    of a mesh, the callable ``tally(d2h_bytes, crc_launches)`` that
+    counts what the part's card did.
 
     Each batch of chunk rows, staged as ``_encode_seq`` stages it, is
     encoded (``encode_blocks_seq``) and checksummed (``crc32c_chunks``),
@@ -1536,33 +1555,47 @@ def _compress_framed_seq(src, cs: int, device) -> bytes:
     to the stream's length (``native._fill_bytes_exact``, plain C-API
     calls that need no native library): one host copy of the stream.
     ``FRAMED["device_framed_chunks"]`` counts the records."""
-    on_dev = isinstance(src, torch.Tensor)
-    n = int(src.numel()) if on_dev else len(src)
-    n_chunks = -(-n // cs)
-    if n_chunks == 0:
+    batches, widths, n_all, chunks_all = [], {}, 0, 0
+    for device, src, tally in parts:
+        if not isinstance(src, torch.Tensor):
+            src = np.frombuffer(src, np.uint8)
+        n = int(src.numel()) if isinstance(src, torch.Tensor) else src.size
+        n_chunks = -(-n // cs)
+        if not n_chunks:
+            continue
+        step = _seq_width(_eseq.resident_rows, device, cs)
+        batches += [(device, src, tally, n, base, step)
+                    for base in range(0, n_chunks, step)]
+        widths[device] = max(widths.get(device, 0), min(step, n_chunks))
+        n_all += n
+        chunks_all += n_chunks
+    if not batches:
         return bytes(STREAM_ID_CHUNK)
     head = len(STREAM_ID_CHUNK)
+    on_dev = isinstance(batches[0][1], torch.Tensor)
+    sets = {}
     with span("snappy.alloc"):
-        step = _seq_width(_eseq.resident_rows, device, cs)
-        rows_n = min(step, n_chunks)
-        # a record is its chunk's bytes at most, plus an 8-byte header
-        shapes = dict(lens=((rows_n,), torch.int32),
-                      ends=((rows_n,), torch.int64),
-                      framed=((rows_n * (cs + 8),), torch.uint8))
-        if not on_dev:
-            shapes["blocks"] = ((rows_n * cs,), torch.uint8)
-            src = np.frombuffer(src, np.uint8)
-        sets = _host_sets(device, **shapes)
-    bound = head + n + 8 * n_chunks
+        for device, rows_n in widths.items():
+            # a record is its chunk's bytes at most, plus an 8-byte header
+            shapes = dict(lens=((rows_n,), torch.int32),
+                          ends=((rows_n,), torch.int64),
+                          framed=((rows_n * (cs + 8),), torch.uint8))
+            if not on_dev:
+                shapes["blocks"] = ((rows_n * cs,), torch.uint8)
+            sets[device] = _host_sets(device, **shapes)
+    turns = dict.fromkeys(sets, 0)
+    bound = head + n_all + 8 * chunks_all
 
     def fetch(b: dict) -> None:
         """Queue the copy of batch b's records, its ends on the host."""
-        with span("snappy.enqueue"):
+        with span("snappy.enqueue"), _guard(b["hs"].device):
             hs = b["hs"]
             hs.wait()
             b["total"] = int(hs.np["ends"][b["cnt"] - 1])
             _fetch(hs.t["framed"][: b["total"]], b["framed"][: b["total"]])
             hs.record()
+            if b["tally"] is not None:
+                b["tally"](b["total"], 0)
 
     def finish(b: dict, stream: np.ndarray, pos: int) -> int:
         """Copy batch b's records on into ``stream`` at ``pos``, once
@@ -1574,19 +1607,21 @@ def _compress_framed_seq(src, cs: int, device) -> bytes:
         return pos + total
 
     # a batch's spans nest in one enqueue span
-    def dispatch(k: int, base: int, prev) -> dict:
-        """Stage and queue batch k, and the fetch of batch k-1."""
-        with span("snappy.enqueue"):
-            cnt = min(step, n_chunks - base)
+    def dispatch(batch, prev) -> dict:
+        """Stage and queue a batch, and the fetch of the one before."""
+        device, src, tally, n, base, step = batch
+        with span("snappy.enqueue"), _guard(device):
+            cnt = min(step, -(-n // cs) - base)
             lo = base * cs
             nb = min(n, lo + cnt * cs) - lo
-            hs = sets[k % _NSETS]
+            hs = sets[device][turns[device] % _NSETS]
+            turns[device] += 1
             hs.wait()
             with span("snappy.stage"):
                 hs.np["lens"][:cnt] = _chunk_lens(nb, cnt, cs)
                 rows = _seq_rows(src, lo, nb, cnt, cs, hs, device)
             if prev is not None:
-                fetch(prev)  # batch k-1's records, once batch k is staged
+                fetch(prev)  # the batch before's records, once this is staged
             lens_d = _upload(hs.t["lens"][:cnt], device)
             comp, clens, _err = encode_blocks_seq(rows, lens_d)  # valid lens
             framed, ends = frame_records(rows, lens_d, comp, clens,
@@ -1594,23 +1629,25 @@ def _compress_framed_seq(src, cs: int, device) -> bytes:
             _fetch(hs.t["ends"][:cnt], ends)
             hs.record()
             FRAMED["device_framed_chunks"] += cnt
-        return dict(cnt=cnt, hs=hs, framed=framed)
+            if tally is not None:
+                tally(8 * cnt, 1)
+        return dict(cnt=cnt, hs=hs, framed=framed, tally=tally)
 
     def fill(ptr) -> int:
         """Write the stream at ``ptr`` (``bound`` bytes); its length."""
         stream = np.ctypeslib.as_array(ptr, shape=(bound,))
         stream[:head] = np.frombuffer(STREAM_ID_CHUNK, np.uint8)
         pos, prev = head, None
-        for k, base in enumerate(range(0, n_chunks, step)):
-            cur = dispatch(k, base, prev)
+        for batch in batches:
+            cur = dispatch(batch, prev)
             if prev is not None:
-                pos = finish(prev, stream, pos)  # while the device runs k
+                pos = finish(prev, stream, pos)  # while the device runs cur
             prev = cur
         fetch(prev)
         return finish(prev, stream, pos)
 
     out = native._fill_bytes_exact(bound, fill)
-    _release(sets)
+    _release([hs for s in sets.values() for hs in s])
     return out
 
 
@@ -1664,7 +1701,7 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
             and chunk_size == MAX_CHUNK_UNCOMPRESSED and len(data)):
         return _compress_framed_id(data, device)
     if _frames_on_device(engine):
-        return _compress_framed_seq(data, chunk_size, device)
+        return _compress_framed_seq([(device, data, None)], chunk_size)
     if engine == "flat":
         chunks = ((idx, ln, blob, None) for idx, ln, blob
                   in _encode_batches(data, chunk_size, device))
@@ -1739,7 +1776,7 @@ def _check_uint8(arr) -> None:
 
 
 @_entry
-def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
+def compress_framed_from_device(arr, lens=None, device=None) -> bytes:
     """Compress a uint8 device tensor into a framed (.sz) stream.
 
     Each 64 KiB chunk's CRC-32C is computed on the device before its
@@ -1754,7 +1791,17 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     takes the id path, as the JAX package does.  Without the native
     library the jnp engine (or the seq engine, where it is picked)
     encodes the tensor's chunks in place and the CRC kernel checksums
-    them: the bytes of ``compress_framed(bytes(arr))``."""
+    them: the bytes of ``compress_framed(bytes(arr))``.
+
+    With ``lens``, ``arr`` is chunk rows sharded over a mesh, a
+    ``dist.mesh.ShardedRows`` of uint8 [B, 65536], and ``lens`` the valid
+    bytes of rows [:len(lens)], the rest padding (the layout that
+    ``sharded_decompress_framed_to_device`` returns): each shard goes
+    through the path above on its own device, shard after shard, and the
+    stream holds a record of each row of nonzero length, in row order
+    (``_compress_framed_sharded``); ``device`` is then not taken."""
+    if lens is not None:
+        return _compress_framed_sharded(arr, lens, device)
     _check_uint8(arr)
     with span("snappy.alloc"):
         device = arr.device if device is None else resolve(device)
@@ -1763,34 +1810,71 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
     COUNTERS["bytes"] += n
     if n == 0:
         return bytes(STREAM_ID_CHUNK)
+    return _framed_from_device([(device, arr, None)], _encode_engine())
+
+
+def _framed_from_device(parts, engine: str) -> bytes:
+    """The framed stream of the 64 KiB chunks of each of ``parts`` (as
+    ``_compress_framed_seq`` takes them, each ``src`` a flat tensor on
+    its device), one part after another, by ``engine``'s from-device
+    path."""
     cs = MAX_CHUNK_UNCOMPRESSED
-    engine = _encode_engine()
     if _frames_on_device(engine):
-        return _compress_framed_seq(arr, cs, device)
+        return _compress_framed_seq(parts, cs)
     if engine == "seq" or not native.available():
-        if engine == "seq":  # host CRCs of the chunks' bytes
-            recs = ((ln, elem, native.crc32c(chunk.tobytes()), chunk)
-                    for _, ln, elem, chunk
-                    in _encode_seq(arr, cs, device, with_chunks=True))
-        else:  # device CRCs; the stored chunks' bytes come back
-            recs = ((ln, elem, crc, stored) for _, ln, elem, crc, stored
-                    in _encode_jnp(arr, cs, device, with_crc=True))
         out = bytearray(STREAM_ID_CHUNK)
-        for ln, elem, crc, raw in recs:
-            out += _framed_record(ln, elem, crc, raw)
+        for device, arr, tally in parts:
+            d2h = COUNTERS["d2h_bytes"]
+            if engine == "seq":  # host CRCs of the chunks' bytes
+                recs = ((ln, elem, native.crc32c(chunk.tobytes()), chunk)
+                        for _, ln, elem, chunk
+                        in _encode_seq(arr, cs, device, with_chunks=True))
+            else:  # device CRCs; the stored chunks' bytes come back
+                recs = ((ln, elem, crc, stored) for _, ln, elem, crc, stored
+                        in _encode_jnp(arr, cs, device, with_crc=True))
+            for ln, elem, crc, raw in recs:
+                out += _framed_record(ln, elem, crc, raw)
+            if tally is not None:  # a shard: the seq engine, host CRCs
+                tally(COUNTERS["d2h_bytes"] - d2h, 0)
         with span("snappy.finish"):
             return bytes(out)
-    n_chunks = -(-n // cs)
-    sets = _crc_sets(device, min(BATCH, n_chunks), "rows")
+    return _framed_id_from_device(parts)
 
-    def dispatch(k, base):
-        cnt = min(BATCH, n_chunks - base)
+
+def _framed_id_from_device(parts) -> bytes:
+    """Id engine: the framed stream of the 64 KiB chunks of each of
+    ``parts`` (device, flat tensor, tally), one part after another.
+
+    Per batch of BATCH chunks the device computes each chunk's CRC-32C
+    (with ``DEVICE_CRC``) and the batch's bytes come back into a pinned
+    set of its part's device; the native matcher and assembler
+    (``compress_framed_crc``) frames batch k while batch k+1's CRC and
+    copy are queued, from one part into the next too.  The copy of a
+    shard's batch (a part with a tally) and the wait for it are the span
+    ``snappy.shard_fetch``."""
+    cs = MAX_CHUNK_UNCOMPRESSED
+    batches, widths = [], {}
+    for device, flat, tally in parts:
+        n = int(flat.numel())
+        n_chunks = -(-n // cs)
+        batches += [(device, flat, tally, n, base)
+                    for base in range(0, n_chunks, BATCH)]
+        if n_chunks:
+            widths[device] = max(widths.get(device, 0), min(BATCH, n_chunks))
+    sets = {device: _crc_sets(device, rows_n, "rows")
+            for device, rows_n in widths.items()}
+    turns = dict.fromkeys(sets, 0)
+
+    def dispatch(k, batch):
+        device, src, tally, n, base = batch
+        cnt = min(BATCH, -(-n // cs) - base)
         lo = base * cs
         nb = min(n, lo + cnt * cs) - lo
-        hs = sets[k % _NSETS]
+        hs = sets[device][turns[device] % _NSETS]
+        turns[device] += 1
         # the batch's spans nest in one enqueue span and one finish span
-        with span("snappy.enqueue"):
-            flat = arr[lo : lo + nb]
+        with span("snappy.enqueue"), _guard(device):
+            flat = src[lo : lo + nb]
             hs.wait()
             with span("snappy.stage"):
                 if DEVICE_CRC:
@@ -1804,21 +1888,45 @@ def compress_framed_from_device(arr: torch.Tensor, device=None) -> bytes:
                     hs.np["lens"][:cnt] = _chunk_lens(nb, cnt)
             if DEVICE_CRC:
                 _crc_into(hs, rows, device)
-            _fetch(hs.t["rows"][:nb], flat)
+            if tally is None:
+                _fetch(hs.t["rows"][:nb], flat)
+            else:
+                with span("snappy.shard_fetch"):
+                    _fetch(hs.t["rows"][:nb], flat)
+                tally(nb + 8 * cnt * DEVICE_CRC, int(DEVICE_CRC))
             hs.record()
-        return nb, cnt, hs
+        return nb, cnt, hs, tally
 
     out = bytearray(STREAM_ID_CHUNK)
-    for nb, cnt, hs in _one_behind(range(0, n_chunks, BATCH), dispatch):
+    for nb, cnt, hs, tally in _one_behind(batches, dispatch):
         with span("snappy.finish"):
-            hs.wait()
+            hs.wait("snappy.wait" if tally is None else "snappy.shard_fetch")
             crcs = hs.np["crc"][:cnt].astype(np.uint32) if DEVICE_CRC else None
             out += _native_call(native.compress_framed_crc,
                                 hs.np["rows"][:nb], nb, crcs, chunk_size=cs,
                                 threads=_threads(), write_id=False)
-    _release(sets)
+    _release([hs for s in sets.values() for hs in s])
     with span("snappy.finish"):
         return bytes(out)
+
+
+def _compress_framed_sharded(rows, lens, device) -> bytes:
+    """``compress_framed_from_device`` of chunk rows sharded over a mesh:
+    the runs of rows that ``dist.mesh.framed_parts`` cuts from each shard
+    (every row of a run but its last a full chunk, so that the run's
+    bytes are its rows' chunks), each through the engine's from-device
+    path on its shard's device.  Without the native library each chunk
+    takes the sequential encoder's element, the reference element that
+    the JAX package's mesh form emits, through the seq engine's path."""
+    from snappy_tpu_torch.dist import mesh
+
+    if device is not None:
+        raise ValueError("device= is not taken with sharded rows: each "
+                         "shard is encoded on its own device")
+    parts, total = mesh.framed_parts(rows, lens)
+    COUNTERS["bytes"] += total
+    engine = _encode_engine() if native.available() else "seq"
+    return _framed_from_device(parts, engine)
 
 
 @_entry

@@ -873,6 +873,62 @@ def test_dist_forms_on_card(cuda_device):
     assert km.launches > before[2]
 
 
+def _sharded_save(mesh, data, monkeypatch):
+    """``compress_framed_from_device`` of ``data``'s chunk rows laid out
+    over ``mesh`` against the native stream, the single-tensor path and
+    the CPU mesh; every shard's card made its CRC launch, and its rows
+    came back from it."""
+    from snappy_tpu_torch.dist import mesh as dm
+
+    monkeypatch.setattr(dm, "SHARDS", {"d2h_bytes": [], "crc_launches": []})
+    n, cs, size = len(data), 65536, mesh.size
+    b = -(-n // cs)
+    host = np.zeros((-(-b // size) * size, cs), np.uint8)
+    host.reshape(-1)[:n] = np.frombuffer(data, np.uint8)
+    lens = np.minimum(n - np.arange(b) * cs, cs).astype(np.int32)
+    rows = dm.shard_rows(mesh, torch.from_numpy(host))
+    assert [s.device for s in rows.shards] == list(mesh.devices)
+    before = kc.launches
+    got = dc.compress_framed_from_device(rows, lens)
+    want = native.compress_framed(data)
+    assert got == want
+    assert kc.launches - before >= size
+    assert all(dm.SHARDS["crc_launches"])
+    per = host.shape[0] // size
+    assert dm.SHARDS["d2h_bytes"] == [
+        int(lens[k * per : (k + 1) * per].sum())
+        + 8 * lens[k * per : (k + 1) * per].size for k in range(size)]
+    flat = torch.from_numpy(np.frombuffer(data, np.uint8).copy())
+    assert dc.compress_framed_from_device(flat.to(mesh.devices[0])) == want
+    cpu = dm.shard_rows(dm.make_mesh(devices=["cpu"] * size), rows.cpu())
+    assert dc.compress_framed_from_device(cpu, lens) == want
+    # a short middle row on every card: a record a row, in row order
+    lens2 = lens.copy()
+    lens2[1 :: per] = 4097
+    assert (dm.sharded_encode_rows_to_chunks(mesh, rows, lens2)
+            == dm.sharded_encode_rows_to_chunks(cpu.mesh, cpu, lens2))
+
+
+def test_sharded_save_on_four_shards_of_the_card(cuda_device, monkeypatch):
+    from snappy_tpu_torch.dist import mesh as dm
+
+    data = _corpus(23, 3 << 20)[: (3 << 20) - 12345]
+    _sharded_save(dm.make_mesh(devices=[cuda_device] * 4), data, monkeypatch)
+
+
+def test_sharded_save_on_four_cards(cuda_device, monkeypatch):
+    """``make_mesh(4)``: a shard on each of cuda:0-cuda:3, each launching
+    its CRC on its own card."""
+    from snappy_tpu_torch.dist import mesh as dm
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA GPUs")
+    mesh = dm.make_mesh(4)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
+    data = _corpus(24, 9 << 20)[: (9 << 20) - 999]
+    _sharded_save(mesh, data, monkeypatch)
+
+
 def test_multihost_entry_points_on_card(cuda_device):
     """The multi-host device entry points default to the card's mesh;
     two simulated hosts' records assemble into the single stream."""
