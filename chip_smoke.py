@@ -395,9 +395,14 @@ def seq_decode_phase(card, dev, data, full):
     chunks taken across the 256 MiB corpus; each as native.compress emits
     them in the runtime's 66,560-byte rows, plus an all-zero chunk, a
     random one, an empty stream (a stored chunk's row) and corrupt rows
-    hitting every error code (err vectors compared too).  Returns the
-    largest difference, the SEQ_ROWS arguments, the wide arguments, and
-    the plain version's seconds on the wide launch."""
+    hitting every error code (err vectors compared too).  The wide launch
+    also as the seq engine stages a batch: the streams laid out as one
+    span, 8 non-zero bytes (a chunk's header and CRC) before each, read
+    as rows of stride 0, each row's stream at ``[rel + hdr, rel +
+    len)``; the kernel there must equal the plain version on the padded
+    rows, out and err.  Returns the largest difference, the SEQ_ROWS
+    arguments, the wide span arguments (the main path's layout), and the
+    plain version's seconds on the wide launch."""
     from snappy_tpu_torch import native
     from snappy_tpu_torch.spec.format import read_uvarint
     from snappy_tpu_torch.kernels import decode_seq as kds
@@ -439,11 +444,47 @@ def seq_decode_phase(card, dev, data, full):
                   f"byte-identical to plain and native.decompress, {nbad} "
                   f"corrupt rows with err {codes[-nbad:].tolist()} equal to "
                   f"plain (max_abs_err {max_err}); plain {plain_s:.3f} s")
+        if name == "wide":
+            args, span_err = _seq_span_check(card, dev, streams, starts,
+                                             clens, dlens, pout, perr)
+            max_err = max(max_err, span_err)
         runs[name] = (max_err, args, plain_s)
     wide = runs["wide"][1]
     return (max(r[0] for r in runs.values()),
             tuple(t[:SEQ_ROWS] for t in runs["64"][1]), wide,
             runs["wide"][2])
+
+
+def _seq_span_check(card, dev, streams, starts, clens, dlens, pout, perr):
+    """seq_decode_phase's wide streams as one span of stride-0 rows, the
+    kernel there against the plain version's ``pout``/``perr`` on the
+    padded rows.  Returns the span arguments and the largest
+    difference."""
+    from snappy_tpu_torch.kernels import decode_seq as kds
+
+    gap = bytes([0x01, 0x31, 0x02, 0x07, 0xD7, 0x9E, 0xFF, 0x01])
+    span, rel = bytearray(), []
+    for c in streams:
+        span += gap
+        rel.append(len(span))
+        span += c
+    rel = np.array(rel, np.int32)
+    nb = len(streams)
+    flat = torch.frombuffer(span, dtype=torch.uint8).to(dev)
+    _, st, cl, dl = kds.stage_decode(np.zeros((1, 1), np.uint8),
+                                     starts + rel, clens + rel, dlens, dev)
+    args = (flat.expand(nb, len(span)), st, cl, dl)
+    out, err = kds.decode_blocks_seq(*args, 65536)
+    max_err = max(
+        int((out.to(torch.int16) - pout.to(torch.int16)).abs().max()),
+        int((err - perr).abs().max()))
+    assert torch.equal(out, pout) and torch.equal(err, perr), \
+        "seq decode kernel on a span != plain on padded rows"
+    log(card, f"seq_decode [{nb} rows] on one {len(span)}-byte span "
+              f"(stride-0 rows, 8 non-zero bytes before each stream): out "
+              f"and err equal to plain on the padded rows (max_abs_err "
+              f"{max_err})")
+    return args, max_err
 
 
 def seq_encode_phase(card, dev, data, full):
@@ -1007,12 +1048,14 @@ def main_path(card, dev, full, id_mib, classify_mib, seq_mib, wave_mib,
 def seq_launches(dev, data: bytes) -> dict:
     """The seq engine's kernel launches for ``compress_framed(data)`` and
     ``decompress_framed_to_device`` of its stream, recorded (arguments
-    cloned, since the runtime reuses its staging tensors) in one more
-    uncounted run of each, for main_path's back-to-back replay: {name:
-    (bytes, "rows per launch", None, [launch, ...])}."""
+    copied by ``kernel_cost.keep``, since the runtime reuses its staging
+    tensors) in one more uncounted run of each, for main_path's
+    back-to-back replay: {name: (bytes, "rows per launch", None,
+    [launch, ...])}."""
     import snappy_tpu_torch as st
     from snappy_tpu_torch.kernels import decode_seq as kds
     from snappy_tpu_torch.kernels import encode_seq as kes
+    from snappy_tpu_torch.bench.kernel_cost import keep
     from snappy_tpu_torch.runtime import device_codec as dc
 
     recorded = {"seq_decode": [], "seq_encode": []}
@@ -1021,21 +1064,18 @@ def seq_launches(dev, data: bytes) -> dict:
 
     def recorder(name):
         def call(*args, **kwargs):
-            recorded[name].append((tuple(
-                a.clone() if torch.is_tensor(a) else a for a in args), kwargs))
+            recorded[name].append((tuple(keep(a) for a in args), kwargs))
             return real[name](*args, **kwargs)
         return call
 
     dc.FLAT, dc.HOST_PARSE = False, False
-    # the payload-row decoders are looked up in _ROW_DECODERS
-    row_decoder = dc._ROW_DECODERS["seq"]
-    dc._ROW_DECODERS["seq"] = (recorder("seq_decode"), row_decoder[1])
+    dc.decode_blocks_seq = recorder("seq_decode")
     dc.encode_blocks_seq = recorder("seq_encode")
     try:
         fr = st.compress_framed(data, device=dev)
         st.decompress_framed_to_device(fr, device=dev)
     finally:
-        dc._ROW_DECODERS["seq"] = row_decoder
+        dc.decode_blocks_seq = real["seq_decode"]
         dc.encode_blocks_seq = real["seq_encode"]
         dc.FLAT, dc.HOST_PARSE = True, True
     out = {}
@@ -1058,8 +1098,9 @@ def kernel_times(card, dev, plan, rplan, eplan, seq64, seq_wide, wave,
     (``rplan``: meta cut to the used trips, B rows bucketed); the
     sequential, wave and match kernels at their engine's width (the card's
     resident rows; ``wave`` and ``match``: the 64-row and wide arguments;
-    the sequential plain times at the width are phases 5-6's single call
-    on the same launch), the framed-record kernel on phase 6b's aligned
+    the sequential decode on phase 5's span of stride-0 rows, as the seq
+    engine stages a batch; the sequential plain times at the width are
+    phases 5-6's single call on the same streams), the framed-record kernel on phase 6b's aligned
     batch at the seq engine's width (``frame``: its arguments and its
     plain version's ms there).  Besides: the CRC at one row (a 4 KiB and a
     64 KiB length, a checkpoint tensor's call) and at the seq engine's

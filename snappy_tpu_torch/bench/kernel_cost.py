@@ -9,7 +9,8 @@ that ``chip_smoke.py`` and the profilers of this folder share.
   over the launches, its ``device_ms_per_call``, then reads low);
 - ``kernel_split``: every kernel a call launches, by name, its records
   and their mean (what sets the pace of a function of several kernels);
-- ``replay``: CUDA-event and host-clock time of launches run back to back.
+- ``replay``: CUDA-event and host-clock time of launches run back to back;
+- ``keep``: a launch's argument copied for a later replay.
 
 Imports torch and the port's kernel modules only inside the functions,
 so a profiler that runs another checkout's package (``--root``) loads
@@ -64,6 +65,20 @@ def flat_copied_bytes(b_u8, meta, starts, ntrips, dst_max: int,
     # src0 + lane < nbytes
     room = torch.minimum(dst_max - dst0, nbytes - src0) - dphi
     return int(torch.where(valid, room.clamp(min=0).minimum(length), 0).sum())
+
+
+def keep(x):
+    """A copy of a recorded launch's argument (the runtime reuses its
+    buffers), for its replay: a tensor's values in a new tensor of its
+    shape, a view of row stride 0 (the seq engine's span of a batch)
+    still one, over one copy of its row; anything else as it is."""
+    import torch
+
+    if not torch.is_tensor(x):
+        return x
+    if x.dim() == 2 and x.shape[0] and x.stride(0) == 0:
+        return x[0].clone().expand(x.shape)
+    return x.clone()
 
 
 def kernel_bytes(name: str, args, out_max: int = 65536,

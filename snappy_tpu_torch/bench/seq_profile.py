@@ -95,6 +95,7 @@ def main() -> int:
         return 2
     import chip_smoke
     import snappy_tpu_torch as st
+    from kernel_cost import keep
     from snappy_tpu_torch import checkpoint as ck
     from snappy_tpu_torch.kernels import decode_seq as kds
     from snappy_tpu_torch.kernels import encode_seq as kes
@@ -119,8 +120,7 @@ def main() -> int:
     def recorder(name):
         def call(*a, **k):
             if recording[0]:
-                recorded[name].append((tuple(
-                    x.clone() if torch.is_tensor(x) else x for x in a), k))
+                recorded[name].append((tuple(keep(x) for x in a), k))
             return real[name](*a, **k)
         return call
 

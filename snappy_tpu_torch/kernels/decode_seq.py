@@ -158,21 +158,30 @@ def _decode_row(src, dst, hb: bytes, s: int, clen: int, dlen: int) -> int:
     return e
 
 
+def _host_bytes(row: torch.Tensor) -> bytes:
+    """A row's bytes on the host, with 5 zero bytes past them (the
+    widest header read at the row's end)."""
+    return row.cpu().numpy().tobytes() + bytes(5)
+
+
 def decode_blocks_seq_plain(comp, starts, clens, dlens, out_max: int):
     """Plain torch version: a serial walk over each row's elements.  The
-    row's bytes are read once to the host for parsing; literal and copy
-    bytes move as slice copies on ``comp``'s device."""
+    row's bytes are read once to the host for parsing (once for the
+    whole batch where every row is the same bytes, a ``comp`` of row
+    stride 0); literal and copy bytes move as slice copies on
+    ``comp``'s device."""
     _check(comp, starts, clens, dlens, out_max)
     nb, cmax = comp.shape
     out = torch.zeros(nb, out_max, dtype=torch.uint8, device=comp.device)
     err = [0] * nb
     st, cl, dl = starts.tolist(), clens.tolist(), dlens.tolist()
+    shared = _host_bytes(comp[0]) if nb and comp.stride(0) == 0 else None
     for b in range(nb):
         if st[b] < 0 or cl[b] > cmax or dl[b] > out_max:
             raise ValueError(
                 f"row {b}: need 0 <= start, clen <= {cmax}, dlen <= "
                 f"{out_max}; got {st[b]}, {cl[b]}, {dl[b]}")
-        hb = comp[b].cpu().numpy().tobytes() + bytes(5)
+        hb = shared if shared is not None else _host_bytes(comp[b])
         err[b] = _decode_row(comp[b], out[b], hb, st[b], cl[b], dl[b])
     return out, torch.tensor(err, dtype=torch.int32, device=comp.device)
 
@@ -181,7 +190,9 @@ def decode_blocks_seq(comp, starts, clens, dlens, out_max: int):
     """Decode a batch of element streams; returns ``(out uint8 [B,
     out_max], err int32 [B])``.  CUDA tensors run the kernel, CPU
     tensors the plain version.  ``comp`` may be a row-strided view
-    (its pitch is ``comp.stride(0)``)."""
+    (its pitch is ``comp.stride(0)``), one of pitch 0 too: every row is
+    then the same bytes, e.g. one span of many streams, each row's
+    stream at its own ``[starts[b], clens[b])``."""
     global launches
     _check(comp, starts, clens, dlens, out_max)
     if comp.device.type == "cpu":

@@ -34,8 +34,9 @@ device CRCs.  Under FLAT=0 with PALLAS on, raw decode is native too.
                 executes them (``kernels.decode_flat``): framed decode,
                 segmented raw decode, and the encode replay of the host
                 matcher's element.
-  seq           the device LZ engine: each compressed payload goes up as
-                is and one warp decodes it (``kernels.decode_seq``), each
+  seq           the device LZ engine: each batch's payloads go up as the
+                one span of the stream that holds them and one warp
+                decodes each payload there (``kernels.decode_seq``), each
                 64 KiB chunk goes up as is and one warp runs the
                 reference matcher on it (``kernels.encode_seq``), and the
                 CRCs are computed on the device too; a framed encode's
@@ -92,13 +93,15 @@ mesh, a batch's copy off its card and the wait for it are
 and CRC launches).  ``COUNTERS`` counts, always, the bytes the calls were
 asked for and the bytes they copied each way, and the native calls'
 wall and process CPU time; ``FRAMED`` the chunks whose framed record
-the device wrote.
+the device wrote; ``SEQ_STAGING`` the decode rows staged as a span of
+the stream (seq) or as padded rows (jnp).
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import os
 import time
 
@@ -119,6 +122,7 @@ from snappy_tpu_torch.spec.format import (
     CHUNK_PADDING,
     CHUNK_STREAM_ID,
     CHUNK_UNCOMPRESSED,
+    CRC_MASK_DELTA,
     MAX_BLOCK_SIZE,
     MAX_CHUNK_UNCOMPRESSED,
     MAX_UNCOMPRESSED_LEN,
@@ -192,6 +196,10 @@ COUNTERS = {"bytes": 0, "h2d_bytes": 0, "d2h_bytes": 0,
             "native_wall_ns": 0, "native_cpu_ns": 0}
 # chunks whose framed record the device wrote (``_compress_framed_seq``)
 FRAMED = {"device_framed_chunks": 0}
+# decode rows staged each way: the seq engine's rows of a batch's span of
+# the stream (``_dispatch_seq``), the jnp engine's padded payload rows
+# (``_dispatch_rows``)
+SEQ_STAGING = {"span_rows": 0, "padded_rows": 0}
 
 
 def _entry(fn):
@@ -689,56 +697,102 @@ def _decode_classify_batches(src_arr, chunks, comp_idx, dst_offs, out,
 
 
 def _seq_dec_sets(device, rows: int, host_out: bool):
-    """Host sets of the seq and jnp decodes: payload rows, the per-row
-    (starts, clens, dlens, CRC lengths) words, and what comes back."""
+    """Host sets of the seq and jnp decodes: a batch's payloads (one span
+    of the stream for "seq", a padded row each for "jnp"), the per-row
+    (starts, clens, dlens, CRC lengths) words and, for "seq", the stored
+    rows' positions and span offsets, and what comes back."""
     shapes = dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
-                  meta=((4 * rows,), torch.int32),
+                  meta=((6 * rows,), torch.int32),
                   err=((rows,), torch.int32), crc=((rows,), torch.int64))
     if host_out:
         shapes["res"] = ((rows, MAX_CHUNK_UNCOMPRESSED), torch.uint8)
     return _host_sets(device, **shapes)
 
 
-# the payload-row decoders: (comp, starts, clens, dlens, out_max=) ->
-# (rows, err), and their error messages
-_ROW_DECODERS = {"seq": (decode_blocks_seq, ERR_MESSAGES),
-                 "jnp": (_dpar.decode_blocks, _dpar.ERR_MESSAGES)}
+# the fields of a scanned chunk, ``_scan_frames``' tuples, and the rows
+# of a chunk table (``_chunk_table``)
+_TYPE, _OFF, _LEN, _CRC, _DST, _HDR = range(6)
 
 
-def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
-                  host_out: bool, engine: str = "seq") -> torch.Tensor:
-    """Stage one batch of scanned chunks into ``hs``'s pinned payload
-    rows, upload them, launch the engine's decode (the sequential kernel
-    for "seq", the parallel decoder for "jnp"; and the CRC of its rows
-    when asked), and queue the fetch of the error codes and CRCs (and
-    with ``host_out`` the decoded rows) into ``hs``.  A compressed
-    chunk's row is its payload (the element
-    stream starts after the varint header); an uncompressed chunk's row
-    is its data, decoded as an empty stream and copied into place on
-    the device.  Returns the device rows [len(grp), 64 KiB]."""
-    ng = len(grp)
+def _chunk_table(chunks) -> np.ndarray:
+    """Scanned chunks as one int64 [6, n] array, a row a field."""
+    n = len(chunks)
+    flat = np.fromiter(itertools.chain.from_iterable(chunks), np.int64,
+                       count=6 * n)
+    return np.ascontiguousarray(flat.reshape(n, 6).T)
+
+
+def _span_batches(tab: np.ndarray, step: int, cap: int) -> list:
+    """(first, end) chunk positions of the seq engine's batches over a
+    chunk table in stream order: ``step`` chunks each, but a batch ends
+    early where its span (its first payload's start to its last
+    payload's end) would pass ``cap`` bytes.  Padding, skippable or
+    stream-identifier chunks between payloads can make a span that
+    long, and so can eight header bytes a row of payloads near
+    ``_DECODE_CMAX``."""
+    off, end = tab[_OFF], tab[_OFF] + tab[_LEN]
+    n, i, out = tab.shape[1], 0, []
+    while i < n:
+        fit = int(np.searchsorted(end, off[i] + cap, "right"))
+        j = min(i + step, max(fit, i + 1))
+        out.append((i, j))
+        i = j
+    return out
+
+
+def _unmask_crcs(masked: np.ndarray) -> np.ndarray:
+    """``unmask_crc`` of each stored CRC of an int64 array."""
+    rot = (masked - CRC_MASK_DELTA) & 0xFFFFFFFF
+    return ((rot >> 17) | (rot << 15)) & 0xFFFFFFFF
+
+
+def _dispatch_seq(src_arr, tab: np.ndarray, hs: _HostSet, device,
+                  with_crc: bool, host_out: bool) -> torch.Tensor:
+    """Stage one batch of the seq engine, ``tab`` its chunk table in
+    stream order, and queue its work.  The batch's payloads lie in the
+    stream's bytes ``[lo, lo + n)``, from its first payload's start to
+    its last payload's end, eight header bytes apart: that span goes
+    into ``hs``'s pinned buffer in one copy and up as it is, and the
+    sequential kernel reads it as ``len(tab)`` rows of stride 0, row b's
+    element stream in ``[p_off - lo + hdr, p_off - lo + p_len)``.  A
+    stored chunk's row decodes as an empty stream and one gather copies
+    every stored chunk's bytes from the span into its row.  The CRC
+    kernel checksums the rows when asked; the error codes and CRCs (and
+    with ``host_out`` the decoded rows) come back into ``hs``.  Returns
+    the device rows [len(tab), 64 KiB]; a stored row's bytes past its
+    length are unspecified."""
+    ng = tab.shape[1]
+    ctype, p_off, p_len, _crc, dst_len, hdr = tab
+    lo = int(p_off[0])
+    n = int(p_off[-1] + p_len[-1]) - lo
     hs.wait()
     with span("snappy.stage"):
-        cmax = _bucket_cmax(max(ch[2] for ch in grp))
-        # bytes past a payload's end are left as they are: the decoder's
-        # result does not depend on them
-        rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
-        meta = hs.np["meta"][: 4 * ng].reshape(4, ng)
-        for row, (ctype, p_off, p_len, _crc, dst_len, hdr) in enumerate(grp):
-            rows[row, :p_len] = src_arr[p_off : p_off + p_len]
-            if ctype == CHUNK_COMPRESSED:
-                meta[:, row] = (hdr, p_len, dst_len, dst_len)
-            else:
-                meta[:, row] = (0, 0, 0, dst_len)
+        hs.np["comp"][:n] = src_arr[lo : lo + n]
+        meta = hs.np["meta"][: 6 * ng].reshape(6, ng)
+        rel = p_off - lo
+        comp = ctype == CHUNK_COMPRESSED
+        meta[0] = np.where(comp, rel + hdr, 0)
+        meta[1] = np.where(comp, rel + p_len, 0)
+        meta[2] = np.where(comp, dst_len, 0)
+        meta[3] = dst_len
+        stored = np.flatnonzero(~comp)
+        meta[4, : stored.size] = stored
+        meta[5, : stored.size] = rel[stored]
+        SEQ_STAGING["span_rows"] += ng
     with span("snappy.enqueue"):
-        comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
-        meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
-        dec, err = _ROW_DECODERS[engine][0](comp, meta_d[0], meta_d[1],
-                                            meta_d[2],
-                                            out_max=MAX_CHUNK_UNCOMPRESSED)
-        for row, ch in enumerate(grp):
-            if ch[0] != CHUNK_COMPRESSED:
-                dec[row, : ch[2]].copy_(comp[row, : ch[2]])
+        # 64 KiB of room past the span: a stored chunk's window
+        span_d = torch.empty(n + MAX_CHUNK_UNCOMPRESSED, dtype=torch.uint8,
+                             device=device)
+        span_d[:n].copy_(hs.t["comp"][:n], non_blocking=True)
+        COUNTERS["h2d_bytes"] += n
+        meta_d = _upload(hs.t["meta"][: 6 * ng], device).view(6, ng)
+        dec, err = decode_blocks_seq(span_d[:n].expand(ng, n), meta_d[0],
+                                     meta_d[1], meta_d[2],
+                                     out_max=MAX_CHUNK_UNCOMPRESSED)
+        if stored.size:
+            k = stored.size
+            dec[meta_d[4, :k]] = span_d.unfold(
+                0, MAX_CHUNK_UNCOMPRESSED, 1)[meta_d[5, :k]]
         if with_crc:
             _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
         _fetch(hs.t["err"][:ng], err)
@@ -748,40 +802,90 @@ def _dispatch_seq(src_arr, grp, hs: _HostSet, device, with_crc: bool,
     return dec
 
 
-def _check_seq(grp, hs: _HostSet, with_crc: bool, engine: str = "seq") -> None:
-    """Raise for the first row of a finished batch that failed: its
-    decode error (CorruptError), else its CRC (ChecksumError)."""
-    err, crc = hs.np["err"], hs.np["crc"]
-    messages = _ROW_DECODERS[engine][1]
-    for row, ch in enumerate(grp):
+def _dispatch_rows(src_arr, tab: np.ndarray, hs: _HostSet, device,
+                   with_crc: bool) -> None:
+    """Stage one batch of the jnp engine's compressed chunks (``tab``)
+    into ``hs``'s pinned rows, a payload a row at the batch's bucket
+    width, upload them, launch the parallel decoder (and the CRC of its
+    rows when asked), and queue the fetch of the error codes, CRCs and
+    decoded rows into ``hs``."""
+    ng = tab.shape[1]
+    hs.wait()
+    with span("snappy.stage"):
+        cmax = _bucket_cmax(int(tab[_LEN].max()))
+        # bytes past a payload's end are left as they are: the decoder's
+        # result does not depend on them
+        rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
+        for row, (off, ln) in enumerate(zip(tab[_OFF].tolist(),
+                                            tab[_LEN].tolist())):
+            rows[row, :ln] = src_arr[off : off + ln]
+        hs.np["meta"][: 4 * ng].reshape(4, ng)[:] = tab[[_HDR, _LEN, _DST,
+                                                         _DST]]
+        SEQ_STAGING["padded_rows"] += ng
+    with span("snappy.enqueue"):
+        comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
+        meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
+        dec, err = _dpar.decode_blocks(comp, meta_d[0], meta_d[1], meta_d[2],
+                                       out_max=MAX_CHUNK_UNCOMPRESSED)
+        if with_crc:
+            _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
+        _fetch(hs.t["err"][:ng], err)
+        _fetch(hs.t["res"][:ng], dec)
+        hs.record()
+
+
+def _check_seq(tab: np.ndarray, hs: _HostSet, with_crc: bool,
+               messages=ERR_MESSAGES) -> None:
+    """Raise for the first row of a finished batch (``tab``: its chunk
+    table) that failed: its decode error (CorruptError, with
+    ``messages``' text for its code), else its CRC (ChecksumError)."""
+    ng = tab.shape[1]
+    err = hs.np["err"][:ng]
+    bad = err != 0
+    if with_crc:
+        bad |= hs.np["crc"][:ng] != _unmask_crcs(tab[_CRC])
+    if bad.any():
+        row = int(bad.argmax())
         if err[row]:
             raise CorruptError(messages.get(int(err[row]), "decode error"))
-        if with_crc and int(crc[row]) != unmask_crc(ch[3]):
-            raise ChecksumError(ch[3], None)
+        raise ChecksumError(int(tab[_CRC, row]), None)
 
 
 def _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
                         use_dev_crc: bool, device, engine: str = "seq") -> None:
-    """Device LZ engine ("seq") or jnp engine, host output: the payloads
-    go up, the sequential kernel (at the card's width) or the parallel
-    decoder (BATCH rows) decodes them and the CRC kernel checksums them,
-    the decoded rows come back.  Batch k+1 is staged while batch k
-    runs."""
-    step = BATCH if engine == "jnp" else _seq_width(
-        _dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
-    sets = _seq_dec_sets(device, min(step, len(comp_idx)), host_out=True)
+    """Device LZ engine ("seq") or jnp engine, host output, compressed
+    chunks only: the payloads go up (a span of the stream a batch, or
+    padded rows), the sequential kernel (at the card's width) or the
+    parallel decoder (BATCH rows) decodes them and the CRC kernel
+    checksums them, the decoded rows come back.  Batch k+1 is staged
+    while batch k runs."""
+    seq = engine == "seq"
+    step = _seq_width(_dseq.resident_rows, device,
+                      MAX_CHUNK_UNCOMPRESSED) if seq else BATCH
+    width = min(step, len(comp_idx))
+    sets = _seq_dec_sets(device, width, host_out=True)
+    comp_idx = sorted(comp_idx)  # stream order: a span's payloads ascend
+    tab = _chunk_table([chunks[i] for i in comp_idx])
+    if seq:
+        bounds = _span_batches(tab, step, width * _DECODE_CMAX)
+    else:
+        bounds = [(b, min(b + step, len(comp_idx)))
+                  for b in range(0, len(comp_idx), step)]
 
-    def dispatch(k, base):
-        grp = [chunks[i] for i in comp_idx[base : base + step]]
+    def dispatch(k, bound):
+        grp = tab[:, bound[0] : bound[1]]
         hs = sets[k % _NSETS]
-        _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True,
-                      engine=engine)
-        return comp_idx[base : base + step], grp, hs
+        if seq:
+            _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True)
+        else:
+            _dispatch_rows(src_arr, grp, hs, device, use_dev_crc)
+        return comp_idx[bound[0] : bound[1]], grp, hs
 
-    for idx, grp, hs in _one_behind(range(0, len(comp_idx), step), dispatch):
+    messages = ERR_MESSAGES if seq else _dpar.ERR_MESSAGES
+    for idx, grp, hs in _one_behind(bounds, dispatch):
         hs.wait()
         with span("snappy.finish"):
-            _check_seq(grp, hs, use_dev_crc, engine)
+            _check_seq(grp, hs, use_dev_crc, messages)
             res = hs.np["res"]
             for row, i in enumerate(idx):
                 d = chunks[i][4]
@@ -932,12 +1036,13 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     carries the decoded bytes, each chunk's CRC-32C is checked on the
     device where the bytes land, and each batch's 64 KiB images go
     straight into one preallocated output tensor.  Only the CRC values
-    come back.  Device LZ engine: the payloads go up, the sequential
-    kernel decodes them and checks their CRCs on the device, and the
-    decoded rows go into the output tensor the same way; only the error
-    codes and CRC values come back.  Hybrid engine: the payloads and the
-    native parser's records go up, the record executor builds the rows
-    and their CRCs are checked there; only the CRC values come back.
+    come back.  Device LZ engine: each batch's payloads go up as one
+    span of the stream, the sequential kernel decodes them and their CRCs
+    are checked on the device, and the decoded rows go into the output
+    tensor the same way; only the error codes and CRC values come back.
+    Hybrid engine: the payloads and the native parser's records go up,
+    the record executor builds the rows and their CRCs are checked there;
+    only the CRC values come back.
     Streams whose chunks are not all full 64 KiB rows but the last, and
     the classify and jnp engines, decode through ``decompress_framed``
     and upload the result."""
@@ -964,8 +1069,8 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
         if seq:
             step = _seq_width(_dseq.resident_rows, device,
                               MAX_CHUNK_UNCOMPRESSED)
-            sets = _seq_dec_sets(device, min(step, len(chunks)),
-                                 host_out=False)
+            width = min(step, len(chunks))
+            sets = _seq_dec_sets(device, width, host_out=False)
         elif engine == "hybrid":
             step = BATCH
             sets = _hybrid_sets(device, min(step, len(chunks)),
@@ -973,23 +1078,34 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
         else:
             step = BATCH
             sets = _id_sets(device)
+    if seq:
+        with span("snappy.stage"):
+            tab = _chunk_table(chunks)
+            bounds = _span_batches(tab, step, width * _DECODE_CMAX)
+    else:
+        bounds = [(b, min(b + step, len(chunks)))
+                  for b in range(0, len(chunks), step)]
 
-    def dispatch(k, base):
+    def dispatch(k, bound):
+        base, end = bound
         with span("snappy.enqueue"):
-            grp = chunks[base : base + step]
             hs = sets[k % _NSETS]
             if seq:
+                grp = tab[:, base:end]
                 rows = _dispatch_seq(src_arr, grp, hs, device,
                                      verify_checksums, host_out=False)
-            elif engine == "hybrid":
-                rows = _dispatch_hybrid(src_arr, grp, hs, device,
-                                        verify_checksums, host_out=False)
+                nb = int(grp[_DST].sum())
             else:
-                rows = _dispatch_id(src_arr, grp, hs, device,
-                                    verify_checksums)
+                grp = chunks[base:end]
+                if engine == "hybrid":
+                    rows = _dispatch_hybrid(src_arr, grp, hs, device,
+                                            verify_checksums, host_out=False)
+                else:
+                    rows = _dispatch_id(src_arr, grp, hs, device,
+                                        verify_checksums)
+                nb = sum(ch[4] for ch in grp)
             # every chunk but the stream's last fills its 64 KiB row
             lo = base * _CRC_CHUNK
-            nb = sum(ch[4] for ch in grp)
             full = nb // _CRC_CHUNK
             if full:
                 out[lo : lo + full * _CRC_CHUNK].view(full, _CRC_CHUNK).copy_(
@@ -999,7 +1115,7 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
                     rows[full, : nb - full * _CRC_CHUNK])
         return grp, hs
 
-    for grp, hs in _one_behind(range(0, len(chunks), step), dispatch):
+    for grp, hs in _one_behind(bounds, dispatch):
         with span("snappy.finish"):
             hs.wait()
             if seq:

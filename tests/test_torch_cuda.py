@@ -302,6 +302,96 @@ def test_seq_decode_kernel_matches_plain(cuda_device, rng, cmax, out_max):
         assert out_h[i, : len(b)].tobytes() == b
 
 
+@pytest.mark.parametrize("wide", [False, True])
+def test_seq_decode_kernel_on_a_span_view(cuda_device, rng, wide):
+    """The seq engine's layout: one span of the stream (8 non-zero bytes,
+    a chunk's header and CRC, before each payload) read as rows of
+    stride 0, row b's stream at [rel + hdr, rel + len), against the
+    plain version on padded rows (stale bytes past each stream): corpus
+    rows, every error code, headers cut at the payload end; the distinct
+    rows once, and cycled to the engine's width."""
+    data = _corpus(23, 12 << 16)
+    blocks = [data[i << 16 : (i + 1) << 16] for i in range(12)]
+    blocks += [bytes(65536), rng.bytes(65536), b""]
+    streams = [native.compress(b) for b in blocks] + _BAD_STREAMS
+    streams.append(b"\x00\x0cabcd")  # ERR_SRC_TRAIL: start past its end
+    comp, starts, clens, dlens = _seq_rows(streams, 66560)
+    comp[:, :] = 0xA5
+    for i, c in enumerate(streams):
+        comp[i, : len(c)] = np.frombuffer(c, np.uint8)
+    starts[-1] = clens[-1] + 2
+    idx = np.arange(len(streams))
+    if wide:
+        idx = _wide_rows(kds.resident_rows(cuda_device, 65536) + 5,
+                         len(streams))
+    gap = bytes([0x01, 0x31, 0x02, 0x07, 0xD7, 0x9E, 0xFF, 0x01])
+    span, rel = bytearray(), []
+    for i in idx:
+        span += gap
+        rel.append(len(span))
+        span += streams[i]
+    rel = np.array(rel, np.int32)
+    flat = torch.frombuffer(span, dtype=torch.uint8).to(cuda_device)
+    _, st, cl, dl = kds.stage_decode(comp[idx], starts[idx] + rel,
+                                     clens[idx] + rel, dlens[idx],
+                                     cuda_device)
+    before = kds.launches
+    out, err = kds.decode_blocks_seq(flat.expand(len(idx), len(span)), st,
+                                     cl, dl, 65536)
+    torch.cuda.synchronize()
+    assert kds.launches == before + 1
+    pout, perr = kds.decode_blocks_seq_plain(
+        *kds.stage_decode(comp, starts, clens, dlens, cuda_device), 65536)
+    sel = torch.from_numpy(idx).to(cuda_device)
+    assert torch.equal(err, perr[sel]) and torch.equal(out, pout[sel])
+    assert set(err.tolist()) == {0, 1, 2, 3, 4}
+    out_h = out.cpu().numpy()
+    for r, i in enumerate(idx[: len(blocks)]):
+        assert out_h[r, : len(blocks[i])].tobytes() == blocks[i]
+
+
+def test_seq_engine_spans_on_card(cuda_device, rng, monkeypatch):
+    """The seq engine's to-device decode on the card: stored chunks
+    mid-batch and a short stored last one, skippable and padding chunks
+    between payloads, two padding chunks wider together than the pinned
+    buffer (an early batch end); every row a span row; a decode error
+    ahead of a CRC error raises CorruptError, a flipped last CRC
+    ChecksumError."""
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", False)
+    text = _corpus(24, 6 << 16)
+    data = (text[: 3 << 16] + rng.bytes(65536) + text[3 << 16 :]
+            + rng.bytes(65536) + rng.bytes(999))
+    stream = native.compress_framed(data)
+    recs, pos = [], 10
+    while pos < len(stream):
+        body = int.from_bytes(stream[pos + 1 : pos + 4], "little")
+        recs.append(bytearray(stream[pos : pos + 4 + body]))
+        pos += 4 + body
+    assert [r[0] for r in recs].count(1) >= 3 and recs[-1][0] == 1
+
+    def pad(ctype, n):
+        return bytes((ctype,)) + n.to_bytes(3, "little") + bytes(n)
+
+    wide = pad(0xFE, (1 << 24) - 1) * 2
+    extra = {1: pad(0x80, 100), 2: pad(0xFE, 3), 4: wide}
+    framed = lambda: stream[:10] + b"".join(  # noqa: E731
+        bytes(r) + extra.get(i, b"") for i, r in enumerate(recs))
+    before = dict(dc.SEQ_STAGING)
+    got = dc.decompress_framed_to_device(framed(), device=cuda_device)
+    assert got.cpu().numpy().tobytes() == data
+    assert dc.SEQ_STAGING["span_rows"] - before["span_rows"] == len(recs)
+    assert dc.SEQ_STAGING["padded_rows"] == before["padded_rows"]
+    recs[-1][4] ^= 0x01
+    with pytest.raises(dc.ChecksumError):
+        dc.decompress_framed_to_device(framed(), device=cuda_device)
+    hdr = len(put_uvarint(65536))
+    assert recs[2][0] == 0
+    recs[2][8 + hdr] = (3 << 2) | 2  # a copy before the block start
+    with pytest.raises(dc.CorruptError):
+        dc.decompress_framed_to_device(framed(), device=cuda_device)
+
+
 def test_seq_encode_kernel_matches_plain(cuda_device, rng):
     data = _corpus(19, 16 << 16)
     samples = [data[i << 16 : (i + 1) << 16] for i in range(16)]

@@ -582,3 +582,144 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------
+# the seq engine's decode batches: a span of the stream each
+
+
+@pytest.fixture
+def seq_engine(monkeypatch):
+    """The port on its device LZ engine (FLAT=0, HOST_PARSE=0), the JAX
+    package on its id engine (the "seq" mode of ``mode``)."""
+    monkeypatch.setattr(jdc, "_pallas_cache", True)
+    monkeypatch.setattr(jdc, "FLAT_MODE", "id")
+    monkeypatch.setattr(dc, "FLAT", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", False)
+
+
+def _records(stream: bytes) -> list:
+    """A framed stream's chunks after its stream identifier, each with
+    its 4-byte header."""
+    out, pos = [], 10
+    while pos < len(stream):
+        body = int.from_bytes(stream[pos + 1 : pos + 4], "little")
+        out.append(stream[pos : pos + 4 + body])
+        pos += 4 + body
+    return out
+
+
+def _chunk(ctype: int, body: bytes) -> bytes:
+    return bytes((ctype,)) + len(body).to_bytes(3, "little") + body
+
+
+def _stored_mix(nprng) -> bytes:
+    """Five chunks: compressed, stored, compressed, stored, and a short
+    stored last chunk."""
+    text = b"a span of the stream " * 4000
+    return (text[:65536] + nprng.bytes(65536) + text[5:65541]
+            + nprng.bytes(65536) + nprng.bytes(1000))
+
+
+def _decodes_like_jax(stream: bytes, want: bytes) -> None:
+    """Both packages' framed decodes give ``want``, to the host and to
+    the device."""
+    assert jdc.decompress_framed(stream) == want
+    assert dc.decompress_framed(stream, device="cpu") == want
+    assert np.asarray(jdc.decompress_framed_to_device(stream)).tobytes() \
+        == want
+    assert dc.decompress_framed_to_device(
+        stream, device="cpu").numpy().tobytes() == want
+
+
+@pytest.mark.parametrize("width", [None, 2])
+def test_seq_span_stored_chunks(seq_engine, nprng, monkeypatch, width):
+    """Stored chunks mid-batch and a short stored last chunk: their rows
+    are copied from the batch's span into place in one gather; at the
+    engine's width (one batch) and at 2 rows a launch (three)."""
+    if width:
+        monkeypatch.setattr(dc, "_seq_width", lambda *a: width)
+    data = _stored_mix(nprng)
+    stream = native.compress_framed(data)
+    assert [r[0] for r in _records(stream)] == [0, 1, 0, 1, 1]
+    before = dict(dc.SEQ_STAGING)
+    _decodes_like_jax(stream, data)
+    # the host decode takes the two compressed chunks, the device decode
+    # all five; no padded row
+    assert dc.SEQ_STAGING["span_rows"] - before["span_rows"] == 2 + 5
+    assert dc.SEQ_STAGING["padded_rows"] == before["padded_rows"]
+
+
+def test_seq_span_with_chunks_between_payloads(seq_engine, nprng,
+                                               monkeypatch):
+    """Padding, skippable and repeated stream-identifier chunks between
+    the payloads lie inside a batch's span; a padding chunk wider than
+    the pinned buffer (5 rows x 66,560 B) ends a batch early."""
+    data = _stored_mix(nprng)
+    recs = _records(native.compress_framed(data))
+    big = dc._DECODE_CMAX * len(recs) + 1
+    extra = [_chunk(0xFE, bytes(300)), _chunk(0x80, nprng.bytes(77)),
+             bytes(dc.STREAM_ID_CHUNK), _chunk(0xFE, bytes(big))]
+    stream = bytes(dc.STREAM_ID_CHUNK) + b"".join(
+        r + (extra[i] if i < len(extra) else b"")
+        for i, r in enumerate(recs))
+    widths = []
+    real = dc._dispatch_seq
+
+    def spy(src_arr, tab, *args, **kwargs):
+        widths.append(tab.shape[1])
+        return real(src_arr, tab, *args, **kwargs)
+
+    monkeypatch.setattr(dc, "_dispatch_seq", spy)
+    _decodes_like_jax(stream, data)
+    # host decode: the compressed chunks 0 and 2 (the wide padding lies
+    # after chunk 3); device decode: chunks 0-3, then chunk 4
+    assert widths == [2, 4, 1]
+
+
+@pytest.mark.parametrize("rows", [[0], [2], [4], [0, 2, 4]])
+def test_seq_span_crc_flips(seq_engine, nprng, rows):
+    """A CRC flipped in the first, a middle or the last row of a batch
+    raises ChecksumError from both packages; verify_checksums=False
+    decodes the bytes."""
+    data = _stored_mix(nprng)
+    recs = [bytearray(r) for r in _records(native.compress_framed(data))]
+    for r in rows:
+        recs[r][4] ^= 0x01
+    stream = bytes(dc.STREAM_ID_CHUNK) + b"".join(map(bytes, recs))
+    for dec in ("decompress_framed", "decompress_framed_to_device"):
+        _both_raise(ChecksumError,
+                    lambda: getattr(dc, dec)(stream, device="cpu"),
+                    lambda: getattr(jdc, dec)(stream))
+    assert dc.decompress_framed(stream, False, device="cpu") == data
+
+
+def test_seq_span_decode_error_before_crc_error(seq_engine, nprng):
+    """A row whose element stream fails (a copy before the block start)
+    ahead of a later row with a flipped CRC raises CorruptError, from
+    both packages."""
+    data = _stored_mix(nprng)
+    recs = [bytearray(r) for r in _records(native.compress_framed(data))]
+    hdr = len(put_uvarint(65536))
+    recs[2][8 + hdr] = (3 << 2) | 2  # chunk 2's first element: a copy
+    recs[3][4] ^= 0x01
+    stream = bytes(dc.STREAM_ID_CHUNK) + b"".join(map(bytes, recs))
+    for dec in ("decompress_framed", "decompress_framed_to_device"):
+        _both_raise(CorruptError,
+                    lambda: getattr(dc, dec)(stream, device="cpu"),
+                    lambda: getattr(jdc, dec)(stream))
+
+
+def test_jnp_engine_stages_padded_rows(monkeypatch, nprng):
+    """The jnp engine keeps its padded payload rows (counted as such)
+    and decodes as the JAX package does."""
+    monkeypatch.setattr(dc, "PALLAS", False)
+    monkeypatch.setattr(dc, "HOST_PARSE", False)
+    monkeypatch.setattr(jdc, "_pallas_cache", False)
+    monkeypatch.setattr(jdc, "HOST_PARSE", False)
+    data = _stored_mix(nprng)
+    stream = native.compress_framed(data)
+    before = dict(dc.SEQ_STAGING)
+    _decodes_like_jax(stream, data)
+    assert dc.SEQ_STAGING["padded_rows"] - before["padded_rows"] == 2 * 2
+    assert dc.SEQ_STAGING["span_rows"] == before["span_rows"]

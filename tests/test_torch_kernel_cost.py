@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from snappy_tpu_torch.bench.kernel_cost import kernel_bytes
+from snappy_tpu_torch.bench.kernel_cost import keep, kernel_bytes
 from snappy_tpu_torch.kernels import decode_par as dp
 from snappy_tpu_torch.kernels import decode_pretagged as kp
 from snappy_tpu_torch.kernels import encode_par as ep
@@ -84,3 +84,27 @@ def test_frame_records_bytes():
     assert raw.any() and not raw.all()
     assert kernel_bytes("frame_records", args) == (
         bodies + _nbytes(lens, clens, crc) + int(ends[-1]) + _nbytes(ends))
+
+
+def test_keep_copies_a_span_view_as_one_row():
+    """A recorded launch's arguments: a row-stride-0 view (the seq
+    engine's span) kept as one copy of its row, expanded again; other
+    tensors copied whole; anything else as it is.  The seq decode bytes
+    of the kept span are the span's."""
+    span = torch.arange(40, dtype=torch.int32).to(torch.uint8)
+    view = span.expand(5, 40)
+    kept = keep(view)
+    assert kept.stride() == (0, 1) and torch.equal(kept, view)
+    assert kept.untyped_storage().nbytes() == 40
+    span[0] = 99  # the runtime reuses its buffers
+    assert int(kept[3, 0]) == 0
+    rows = torch.ones(3, 8, dtype=torch.uint8)
+    kept_rows = keep(rows)
+    assert torch.equal(kept_rows, rows) and \
+        kept_rows.data_ptr() != rows.data_ptr()
+    assert keep(7) == 7
+    st, cl = torch.tensor([1, 11, 21, 30, 0], dtype=torch.int32), \
+        torch.tensor([10, 20, 30, 40, 0], dtype=torch.int32)
+    assert kernel_bytes("seq_decode", (kept, st, cl, cl), 64) == \
+        kernel_bytes("seq_decode", (view, st, cl, cl), 64) == \
+        9 + 9 + 9 + 10 + 12 * 5 + 5 * (64 + 4)

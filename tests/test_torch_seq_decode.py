@@ -241,3 +241,83 @@ def test_plain_contract():
     with pytest.raises(ValueError):
         kd.decode_blocks_seq(c.int(), st, cl, dl, 16)
     assert kd.decode_blocks_seq(c, st, cl, dl, 16)[1].tolist() == [0]
+
+
+# streams of a span test: (stream, code); the header-cut rows' bytes past
+# their payload are the next chunk's header, non-zero
+SPAN_ROWS = [
+    (reference.compress(b"span " * 700), kd.ERR_NONE),
+    (b"\x0a\x24abc", kd.ERR_LITERAL),
+    (put_uvarint(8) + _lit(b"abcd") + bytes([(3 << 2) | 2, 10, 0]),
+     kd.ERR_COPY),
+    (b"\x05\x0cabcd", kd.ERR_DST_SHORT),
+    (put_uvarint(8) + _lit(b"abcd") + bytes([(3 << 2) | 2]), kd.ERR_COPY),
+    (put_uvarint(300) + bytes([61 << 2, 43]), kd.ERR_LITERAL),
+    (put_uvarint(0), kd.ERR_NONE),
+    (reference.compress(bytes(range(256)) * 9), kd.ERR_NONE),
+    (b"\x00\x0cabcd", kd.ERR_SRC_TRAIL),  # its start moved past its end
+]
+
+
+def _span_and_rows(streams, gap: bytes, trail: int):
+    """The streams laid out as the seq engine stages a batch, and as
+    padded rows: one span (``gap`` before each stream, as a chunk's
+    header and CRC) read as rows of stride 0, each row's element stream
+    at ``[rel + hdr, rel + len)``; and a row each, its stream at 0 and
+    stale bytes (0xA5) past it.  Row ``trail``'s start is put 2 bytes
+    past its end (a varint header longer than its payload)."""
+    nb = len(streams)
+    span, rel = bytearray(), []
+    for s in streams:
+        span += gap
+        rel.append(len(span))
+        span += s
+    rows = np.full((nb, max(map(len, streams)) + 7), 0xA5, np.uint8)
+    starts, clens, dlens = (np.zeros(nb, np.int32) for _ in range(3))
+    for i, s in enumerate(streams):
+        dlens[i], starts[i] = read_uvarint(s, 0)
+        rows[i, : len(s)] = np.frombuffer(s, np.uint8)
+        clens[i] = len(s)
+    starts[trail] = clens[trail] + 2
+    rel = np.array(rel, np.int32)
+    flat = torch.frombuffer(bytearray(span), dtype=torch.uint8)
+    as_span = (flat.expand(nb, len(span)), *(torch.from_numpy(a) for a in (
+        starts + rel, clens + rel, dlens)))
+    as_rows = kd.stage_decode(rows, starts, clens, dlens, device="cpu")
+    return as_span, as_rows
+
+
+def test_span_view_decodes_as_padded_rows():
+    """A stride-0 view of one span gives the padded rows' bytes and
+    codes, row for row: valid rows, every error code, and headers cut
+    at the payload end with the next chunk's non-zero bytes after them."""
+    streams = [s for s, _ in SPAN_ROWS]
+    gap = b"\x01\x31\x02\x07\xd7\x9e\xff\x01"  # a chunk header, a CRC
+    as_span, as_rows = _span_and_rows(streams, gap, trail=len(streams) - 1)
+    assert as_span[0].stride(0) == 0
+    out_s, err_s = kd.decode_blocks_seq(*as_span, 4096)
+    out_r, err_r = kd.decode_blocks_seq(*as_rows, 4096)
+    assert err_s.tolist() == [code for _, code in SPAN_ROWS]
+    assert torch.equal(err_s, err_r) and torch.equal(out_s, out_r)
+    assert set(err_s.tolist()) == {kd.ERR_NONE, *kd.ERR_MESSAGES}
+    assert out_s[0, :3500].numpy().tobytes() == b"span " * 700
+
+
+def test_plain_version_reads_a_span_once(monkeypatch):
+    """The plain version turns a stride-0 comp to host bytes once for
+    the batch, padded rows once a row."""
+    streams = [s for s, _ in SPAN_ROWS]
+    as_span, as_rows = _span_and_rows(streams, bytes(8), trail=0)
+    reads = []
+    real = kd._host_bytes
+
+    def counted(row):
+        reads.append(row.numel())
+        return real(row)
+
+    monkeypatch.setattr(kd, "_host_bytes", counted)
+    kd.decode_blocks_seq(*as_span, 4096)
+    assert reads == [as_span[0].shape[1]]
+    reads.clear()
+    kd.decode_blocks_seq(*as_rows, 4096)
+    assert reads == [as_rows[0].shape[1]] * len(streams)

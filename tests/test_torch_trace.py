@@ -139,10 +139,11 @@ def _framed_records(stream: bytes):
 def _expected(path, data: bytes) -> dict:
     """The bytes each path sends up and brings back, from the layout:
     the id decode sends a 66,560-byte panel row and a 4-byte length a
-    chunk and brings back an 8-byte CRC; the seq decode sends each
-    payload at its batch's bucket width (16,640, 33,280 or 66,560) and
-    four 4-byte words a row, and brings back an 8-byte CRC and a 4-byte
-    error code; the id encode sends a length and brings back the chunk
+    chunk and brings back an 8-byte CRC; the seq decode sends the span
+    of the stream that holds each batch's payloads (its first payload's
+    start to its last payload's end, the chunk headers between them
+    included) and six 4-byte words a row, and brings back an 8-byte CRC
+    and a 4-byte error code; the id encode sends a length and brings back the chunk
     and its CRC; the seq encode sends a length and brings back its
     record's 8-byte end offset, and the records themselves."""
     eng, call = path
@@ -155,11 +156,11 @@ def _expected(path, data: bytes) -> dict:
     if (eng, call) == ("id", "save"):
         return dict(h2d=k * 4, d2h=n + k * 8)
     if call == "load":
-        h2d = 0
-        for b in batches:
-            widest = max(recs[i][1] - 4 for i in b)
-            h2d += len(b) * (next(w for w in (16640, 33280, 66560)
-                                  if widest <= w) + 16)
+        # a payload starts 8 bytes into its chunk: 4 of header, 4 of CRC
+        starts = np.cumsum([10] + [4 + r[1] for r in recs[:-1]]) + 8
+        ends = starts + [r[1] - 4 for r in recs]
+        h2d = sum(int(ends[b[-1]] - starts[b[0]]) + 24 * len(b)
+                  for b in batches)
         return dict(h2d=h2d, d2h=k * 12)
     return dict(h2d=k * 4, d2h=k * 8 + len(stream) - 10)
 
