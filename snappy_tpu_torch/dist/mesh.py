@@ -36,7 +36,6 @@ run each device's part; here the layout is explicit:
 
 from __future__ import annotations
 
-import os
 from datetime import timedelta
 
 import numpy as np
@@ -63,8 +62,10 @@ from snappy_tpu_torch.kernels.encode_flat import (
 )
 from snappy_tpu_torch.runtime.device_codec import (
     _ID_ROWS,
+    _chunk_table,
     _native,
     _scan_frames,
+    _threads,
     stage_id_rows,
 )
 from snappy_tpu_torch.spec.format import (
@@ -274,10 +275,6 @@ def _crc_flags(rows, dlens, want) -> torch.Tensor:
     crc = crc32c_chunks(rows, dlens)
     bad = (crc != want) & (dlens > 0)
     return torch.where(bad, ERR_CRC, 0).to(torch.int32)
-
-
-def _threads() -> int:
-    return min(4, os.cpu_count() or 1)
 
 
 def _check_rows(rc: np.ndarray, what: str | None = None) -> None:
@@ -545,7 +542,7 @@ def sharded_decompress_framed_to_device(
     b_u8 = np.zeros((max(B, 1), _ID_ROWS * 128), np.uint8)
     dlens = np.zeros(max(B, 1), np.int32)
     want = np.zeros(max(B, 1), np.int64)
-    stage_id_rows(src_arr, chunks, b_u8, dlens)
+    stage_id_rows(src_arr, _chunk_table(chunks), b_u8, dlens)
     want[:B] = [unmask_crc(ch[3]) for ch in chunks]
     (b_u8, dlens_p, want), b = _pad_to_mesh(mesh, b_u8, dlens, want)
     res = [_id_local(*parts, with_crc=verify_checksums)

@@ -16,7 +16,10 @@ variables (``SNAPPY_TPU_FLAT``, ``SNAPPY_TPU_HOST_PARSE``,
   PALLAS=0, HOST_PARSE=0 or device CRC off   jnp             jnp             jnp / jnp
   =========================================  ==============  ==============  =============
 
-"device CRC on" is ``verify_checksums`` with ``DEVICE_CRC``.  PALLAS
+"device CRC on" is ``verify_checksums`` with ``DEVICE_CRC``.  With
+``DEVICE_CRC`` off every decode checks its CRCs on the host, and so do
+the id, classify, hybrid and jnp engines' encodes compute them; the seq
+engine's encode always computes its CRCs on the device.  PALLAS
 "auto" and "1" leave the port's kernel engines on; "0" turns the flat
 and seq engines off and the port does what the JAX package does with
 ``_pallas_enabled()`` false: framed decode and encode as in the table,
@@ -85,16 +88,20 @@ its phases are spans nested in it: ``snappy.scan`` (the header walk),
 batch's pinned set), ``snappy.native`` (a threaded native call),
 ``snappy.enqueue`` (a batch's copies and launches), ``snappy.wait``
 (blocked on a batch's event) and ``snappy.finish`` (the checks and the
-assembly after it).  The id and seq engines' framed paths have every
-phase; the others ``snappy.alloc`` and ``snappy.wait``, through the
-shared helpers.  In the id engine's encode of chunk rows sharded over a
-mesh, a batch's copy off its card and the wait for it are
+assembly after it).  Every engine's framed decode runs its batches
+through one driver (``_decode_batches``), so each of its batches is one
+``snappy.enqueue`` span and one ``snappy.finish`` span; inside them the
+id, seq and jnp dispatches split out ``snappy.stage`` (and the id walk
+``snappy.native``), while the classify and hybrid ones stage inside the
+enqueue span.  The id and seq engines' framed encodes have every phase;
+the others ``snappy.alloc`` and ``snappy.wait``, through the shared
+helpers.  In the id engine's encode of chunk rows sharded over a mesh,
+a batch's copy off its card and the wait for it are
 ``snappy.shard_fetch`` (``dist.mesh.SHARDS`` counts each card's bytes
 and CRC launches).  ``COUNTERS`` counts, always, the bytes the calls were
 asked for and the bytes they copied each way, and the native calls'
-wall and process CPU time; ``FRAMED`` the chunks whose framed record
-the device wrote; ``SEQ_STAGING`` the decode rows staged as a span of
-the stream (seq) or as padded rows (jnp).
+wall and process CPU time; ``SEQ_STAGING`` the decode rows staged as a
+span of the stream (seq) or as padded rows (jnp).
 """
 
 from __future__ import annotations
@@ -104,6 +111,7 @@ import functools
 import itertools
 import os
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -132,7 +140,6 @@ from snappy_tpu_torch.spec.format import (
     mask_crc,
     put_uvarint,
     read_uvarint,
-    unmask_crc,
 )
 from snappy_tpu_torch.device import resolve
 from snappy_tpu_torch.kernels import encode_flat as _enc
@@ -182,6 +189,9 @@ _NSETS = 2            # rounds of host staging buffers in flight
 # most records a payload of _DECODE_CMAX bytes holds (every element is at
 # least 2 bytes), plus slack: sn_parse_tags never runs out on a valid one
 _T_CAP = _DECODE_CMAX // 2 + 2
+# the fields of a scanned chunk, ``_scan_frames``' tuples, and the rows
+# of a chunk table (``_chunk_table``)
+_TYPE, _OFF, _LEN, _CRC, _DST, _HDR = range(6)
 
 # per-chunk host decodes, by cause
 HOST_FALLBACKS = {"plan_overflow": 0, "oversize_payload": 0, "far_offset": 0}
@@ -194,8 +204,6 @@ ENCODE_REPLACED = {"not_ok": 0, "ratio_guard": 0}
 # whose ratio over the threads is their busy share
 COUNTERS = {"bytes": 0, "h2d_bytes": 0, "d2h_bytes": 0,
             "native_wall_ns": 0, "native_cpu_ns": 0}
-# chunks whose framed record the device wrote (``_compress_framed_seq``)
-FRAMED = {"device_framed_chunks": 0}
 # decode rows staged each way: the seq engine's rows of a batch's span of
 # the stream (``_dispatch_seq``), the jnp engine's padded payload rows
 # (``_dispatch_rows``)
@@ -274,13 +282,35 @@ def _decode_engine(dev_crc: bool) -> str:
     return "hybrid" if HOST_PARSE else "seq"
 
 
+def _lands_on_device(engine: str, tab: np.ndarray, total: int) -> bool:
+    """Whether ``decompress_framed_to_device`` lands ``engine``'s batches
+    on the device, else decodes to the host and uploads: the id, seq and
+    hybrid engines with ``DEVICE_CRC``, on a stream (``tab``: its chunk
+    table, ``total`` its decoded bytes) whose chunks are all full 64 KiB
+    rows but the last and whose payloads all fit a device row."""
+    wide = (tab[_TYPE] == CHUNK_COMPRESSED) & (tab[_LEN] > _DECODE_CMAX)
+    return (engine in ("id", "seq", "hybrid") and DEVICE_CRC and total > 0
+            and bool((tab[_DST, :-1] == _CRC_CHUNK).all())
+            and not wide.any())
+
+
 def _encode_engine() -> str:
-    """The encode engine: "flat" (id or classify), "seq" or "jnp"."""
-    if not native.available():
-        return _portable_engine()
-    if not PALLAS:
-        return "jnp"
-    return "flat" if FLAT else "seq"
+    """The encode engine: "id", "classify", "seq" or "jnp", the decode
+    engine's without device CRCs, but "seq" where that is "hybrid"."""
+    engine = _decode_engine(False)
+    return "seq" if engine == "hybrid" else engine
+
+
+def _from_device_engine(sharded: bool) -> str:
+    """The path of an encode from a device tensor: the encode engine's,
+    but with the native library the classify and jnp engines take the id
+    path, as the JAX package's do, and without it a tensor sharded over
+    a mesh takes the seq engine's, whose element is the reference one
+    that the JAX package's mesh form emits."""
+    engine = _encode_engine()
+    if native.available():
+        return "id" if engine in ("classify", "jnp") else engine
+    return "seq" if sharded else engine
 
 
 class _HostSet:
@@ -376,14 +406,6 @@ def _crc_into(hs: _HostSet, rows: torch.Tensor, device) -> None:
     _fetch(hs.t["crc"][:n], crc)
 
 
-def _check_crcs(grp_chunks, crc_h: np.ndarray, skip=()) -> None:
-    """Raise ChecksumError for the first row whose device CRC differs
-    from its chunk's stored (masked) CRC."""
-    for row, ch in enumerate(grp_chunks):
-        if row not in skip and int(crc_h[row]) != unmask_crc(ch[3]):
-            raise ChecksumError(ch[3], None)
-
-
 def _chunk_lens(nb: int, cnt: int,
                 cs: int = MAX_CHUNK_UNCOMPRESSED) -> np.ndarray:
     """Lengths of the cnt cs-byte chunks that hold nb bytes."""
@@ -467,28 +489,25 @@ def _scan_frames(src: bytes):
     return chunks, total
 
 
-def _host_decompress_raw(payload: bytes) -> bytes:
-    """Host decode of one raw stream: the native decoder, else the
-    reference's."""
-    if native.available():
-        return native.decompress(payload)
-    return _reference.decompress(payload)
-
-
-def _host_decode_chunk(src_arr, ch, out, off: int) -> None:
-    """Per-chunk host decode (a format fallback) into out[off:]."""
+def _host_decode_chunk(src_arr, ch) -> np.ndarray:
+    """Per-chunk host decode (a format fallback) of the scanned chunk
+    ``ch``, a tuple or a chunk table's column: the native decoder, else
+    the reference's."""
     _, p_off, p_len, _crc, dst_len, _hdr = ch
-    blob = _host_decompress_raw(bytes(src_arr[p_off : p_off + p_len]))
+    payload = bytes(src_arr[p_off : p_off + p_len])
+    blob = (native.decompress(payload) if native.available()
+            else _reference.decompress(payload))
     if len(blob) != dst_len:
         raise CorruptError("chunk preamble disagrees with decoded size")
-    out[off : off + dst_len] = np.frombuffer(blob, dtype=np.uint8)
+    return np.frombuffer(blob, dtype=np.uint8)
 
 
-def _batch_arrays(chunks, grp):
-    """int64 (payload offsets, payload lengths, header lengths, dst
-    lengths) of a group of scanned chunks, as the native stagers take."""
-    return tuple(np.array([chunks[i][f] for i in grp], np.int64)
-                 for f in (1, 2, 5, 4))
+def _chunk_table(chunks) -> np.ndarray:
+    """Scanned chunks as one int64 [6, n] array, a row a field."""
+    n = len(chunks)
+    flat = np.fromiter(itertools.chain.from_iterable(chunks), np.int64,
+                       count=6 * n)
+    return np.ascontiguousarray(flat.reshape(n, 6).T)
 
 
 @_entry
@@ -498,124 +517,120 @@ def decompress_framed(data: bytes, verify_checksums: bool = True,
         chunks, total = _scan_frames(data)
     COUNTERS["bytes"] += total
     out = np.empty(max(1, total), dtype=np.uint8)
-    src_arr = np.frombuffer(data, dtype=np.uint8)
-    dst_offs = []
-    acc = 0
-    for ch in chunks:
-        dst_offs.append(acc)
-        acc += ch[4]
-    decode_chunk_range(src_arr, chunks, dst_offs, out, range(len(chunks)),
-                       verify_checksums, device=device)
+    dst_offs = np.cumsum([0] + [ch[_DST] for ch in chunks])
+    decode_chunk_range(np.frombuffer(data, dtype=np.uint8), chunks, dst_offs,
+                       out, range(len(chunks)), verify_checksums,
+                       device=device)
     return out[:total].tobytes()
 
 
 def decode_chunk_range(src_arr, chunks, dst_offs, out, subset,
                        verify_checksums: bool = True, device=None) -> None:
     """Decode the chunk-index ``subset`` of a scanned frame index into the
-    host array ``out`` at per-chunk offsets ``dst_offs``."""
+    host array ``out`` at per-chunk offsets ``dst_offs``: stored chunks
+    and payloads wider than a device row on the host, the other
+    compressed chunks in the engine's batches (``_decode_batches``)."""
     device = resolve(device)
     use_dev_crc = verify_checksums and DEVICE_CRC
-    engine = _decode_engine(use_dev_crc)
-    subset = list(subset)
-    host_checked: set = set()  # chunks whose CRC the host verifies
-    all_comp = [i for i in subset if chunks[i][0] == CHUNK_COMPRESSED]
+    idx = np.array(sorted(subset), np.int64)
+    tab = _chunk_table([chunks[i] for i in idx])
+    offs = np.asarray(dst_offs, np.int64)[idx]
+    comp = tab[_TYPE] == CHUNK_COMPRESSED
     # payloads wider than a device row are valid but rare: host decode
-    host_idx = {i for i in all_comp if chunks[i][2] > _DECODE_CMAX}
-    comp_idx = [i for i in all_comp if i not in host_idx]
-    for i in sorted(host_idx):
+    wide = comp & (tab[_LEN] > _DECODE_CMAX)
+    for j in np.flatnonzero(wide):
         HOST_FALLBACKS["oversize_payload"] += 1
-        _host_decode_chunk(src_arr, chunks[i], out, dst_offs[i])
-    host_checked |= host_idx
-    for i in subset:
-        ch = chunks[i]
-        if ch[0] == CHUNK_UNCOMPRESSED:
-            out[dst_offs[i] : dst_offs[i] + ch[4]] = src_arr[ch[1] : ch[1] + ch[2]]
-            host_checked.add(i)
-
-    if comp_idx:
-        if engine == "id":
-            _decode_id_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                               use_dev_crc, device)
-        elif engine in ("seq", "jnp"):
-            _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                                use_dev_crc, device, engine)
-        elif engine == "hybrid":
-            _decode_hybrid_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                                   use_dev_crc, device)
-        else:
-            host_checked |= _decode_classify_batches(
-                src_arr, chunks, comp_idx, dst_offs, out, use_dev_crc,
-                device)
-        if not use_dev_crc:
-            host_checked.update(comp_idx)
-
+        out[offs[j] : offs[j] + tab[_DST, j]] = _host_decode_chunk(
+            src_arr, tab[:, j])
+    for j in np.flatnonzero(~comp):
+        p_off, p_len = tab[_OFF, j], tab[_LEN, j]
+        out[offs[j] : offs[j] + p_len] = src_arr[p_off : p_off + p_len]
+    dev = np.flatnonzero(comp & ~wide)
+    host_checked = np.ones(idx.size, bool)  # chunks the host CRCs
+    if use_dev_crc:
+        host_checked[dev] = False
+    if dev.size:  # a contiguous table: the native stagers take its rows
+        on_host = _decode_batches(_decode_engine(use_dev_crc), src_arr,
+                                  np.ascontiguousarray(tab[:, dev]), device,
+                                  use_dev_crc, (out, offs[dev]))
+        host_checked[dev[on_host]] = True
     if verify_checksums:
         # the chunks not verified on the device, in stream order
-        idx = [i for i in subset if i in host_checked]
-        crcs = _crc32c_host((out[dst_offs[i] : dst_offs[i] + chunks[i][4]]
-                             for i in idx), device)
-        for i, crc in zip(idx, crcs):
+        rows = np.flatnonzero(host_checked)
+        crcs = _crc32c_host((out[offs[j] : offs[j] + tab[_DST, j]]
+                             for j in rows), device)
+        for j, crc in zip(rows, crcs):
             got = mask_crc(crc)
-            if got != chunks[i][3]:
-                raise ChecksumError(chunks[i][3], got)
+            if got != tab[_CRC, j]:
+                raise ChecksumError(int(tab[_CRC, j]), got)
 
 
-def _id_sets(device):
-    return _host_sets(
-        device, panel=((BATCH, _ID_ROWS * 128), torch.uint8),
-        lens=((BATCH,), torch.int32), crc=((BATCH,), torch.int64))
+def _id_shapes(rows: int) -> dict:
+    """Host sets of the id decode: the staging panel, the CRC lengths and
+    the CRCs."""
+    return dict(panel=((rows, _ID_ROWS * 128), torch.uint8),
+                lens=((rows,), torch.int32), crc=((rows,), torch.int64))
 
 
-def _dispatch_id(src_arr, grp_chunks, hs: _HostSet, device,
-                 with_crc: bool) -> torch.Tensor:
-    """Id-stage one batch into ``hs``'s pinned panel, upload it, and
-    launch its CRC when asked; returns the device panel."""
-    ng = len(grp_chunks)
+def stage_id_rows(src_arr: np.ndarray, tab: np.ndarray, b_u8: np.ndarray,
+                  dlens: np.ndarray) -> None:
+    """Id-stage the chunks of the chunk table ``tab`` into staging rows:
+    compressed chunks decode through the threaded native id walk in
+    contiguous runs, stored chunks are their payload.  Fills dlens per
+    row; raises CorruptError on an invalid payload.  Without the native
+    library each compressed row decodes on the host
+    (``_host_decode_chunk``), as in the JAX package."""
+    ctype, p_off, p_len, _crc, dst_len, hdr = tab
+    dlens[: tab.shape[1]] = dst_len
+    comp = ctype == CHUNK_COMPRESSED
+    for row in np.flatnonzero(~comp):  # stored: the row is the payload
+        off, ln = p_off[row], p_len[row]
+        b_u8[row, :ln] = src_arr[off : off + ln]
+        b_u8[row, ln:] = 0
+    rows = np.flatnonzero(comp)
+    if not native.available():
+        for row in rows:
+            b_u8[row, : dst_len[row]] = _host_decode_chunk(src_arr, tab[:, row])
+            b_u8[row, dst_len[row] :] = 0
+        return
+    if not rows.size:
+        return
+    # one native call a run of consecutive compressed rows
+    for run in np.split(rows, np.flatnonzero(np.diff(rows) != 1) + 1):
+        rc64 = np.zeros(run.size, np.int64)
+        bad = _native_call(
+            native.stage_flat_dec_id_batch,
+            src_arr, p_off[run], p_len[run], hdr[run], dst_len[run],
+            b_u8.shape[1] // 128, b_u8[run[0] : run[0] + run.size], rc64,
+            n_threads=_threads())
+        if bad:
+            raise CorruptError("invalid chunk payload (flat stage)")
+
+
+def _dispatch_id(src_arr, tab: np.ndarray, hs: _HostSet, device,
+                 with_crc: bool):
+    """Id-stage one batch (``tab``: its chunk table) into ``hs``'s pinned
+    panel, upload it, and launch its CRC when asked; returns the device
+    panel and no host rows."""
+    ng = tab.shape[1]
     hs.wait()
     with span("snappy.stage"):
-        stage_id_rows(src_arr, grp_chunks, hs.np["panel"][:ng],
-                      hs.np["lens"][:ng])
-    with span("snappy.enqueue"):
-        panel = _upload(hs.t["panel"][:ng], device)
-        if with_crc:
-            _crc_into(hs, panel[:, :_CRC_CHUNK], device)
-        hs.record()
-    return panel
+        stage_id_rows(src_arr, tab, hs.np["panel"][:ng], hs.np["lens"][:ng])
+    panel = _upload(hs.t["panel"][:ng], device)
+    if with_crc:
+        _crc_into(hs, panel[:, :_CRC_CHUNK], device)
+    return panel, {}
 
 
-def _decode_id_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                       use_dev_crc: bool, device) -> None:
-    """Id mode, host output: stage each batch with the native id walk,
-    CRC it on the device, copy the verified rows out of the staging
-    panel.  Batch k+1 is staged while batch k's CRC runs."""
-    sets = _id_sets(device)
-
-    def dispatch(k, base):
-        grp = comp_idx[base : base + BATCH]
-        hs = sets[k % _NSETS]
-        _dispatch_id(src_arr, [chunks[i] for i in grp], hs, device,
-                     use_dev_crc)
-        return grp, hs
-
-    for grp, hs in _one_behind(range(0, len(comp_idx), BATCH), dispatch):
-        hs.wait()
-        with span("snappy.finish"):
-            if use_dev_crc:
-                _check_crcs([chunks[i] for i in grp], hs.np["crc"])
-            panel = hs.np["panel"]
-            for row, i in enumerate(grp):
-                d = chunks[i][4]
-                out[dst_offs[i] : dst_offs[i] + d] = panel[row, :d]
-
-
-def _flat_dec_sets(device, rows: int, rb: int, out_width: int):
-    return _host_sets(
-        device, b=((rows * rb * 128,), torch.uint8),
-        meta=((rows, 8 * _F_TRIPS, 128), torch.int32),
-        meta_up=((rows * 8 * _F_TRIPS * 128,), torch.int32),
-        starts=((rows, 8, 128), torch.int32), ntr=((rows,), torch.int32),
-        lens=((rows,), torch.int32), crc=((rows,), torch.int64),
-        res=((rows, out_width), torch.uint8))
+def _flat_dec_shapes(rows: int, rb: int) -> dict:
+    """Host sets of a flat decode: the plans of ``rows`` rows of ``rb``
+    B rows each, the CRC lengths and the CRCs."""
+    return dict(b=((rows * rb * 128,), torch.uint8),
+                meta=((rows, 8 * _F_TRIPS, 128), torch.int32),
+                meta_up=((rows * 8 * _F_TRIPS * 128,), torch.int32),
+                starts=((rows, 8, 128), torch.int32),
+                ntr=((rows,), torch.int32), lens=((rows,), torch.int32),
+                crc=((rows,), torch.int64))
 
 
 def _upload_flat(hs: _HostSet, n: int, rb: int, device):
@@ -632,112 +647,52 @@ def _upload_flat(hs: _HostSet, n: int, rb: int, device):
             _upload(hs.t["ntr"][:n], device))
 
 
-def _decode_classify_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                             use_dev_crc: bool, device) -> set:
-    """Classify mode, host output: native flat plans executed by the
-    flat kernel, CRC-checked on the device, fetched back.  Returns the
-    chunks decoded on the host instead (plan overflow)."""
-    nat = _native()
-    sets = _flat_dec_sets(device, BATCH, rows_b_for(_DECODE_CMAX),
-                          MAX_CHUNK_UNCOMPRESSED)
-    host_decoded: set = set()
-
-    def dispatch(k, base):
-        grp = comp_idx[base : base + BATCH]
-        ng = len(grp)
-        # size B rows to the batch's widest payload
-        rb = rows_b_for(_bucket_cmax(max(chunks[i][2] for i in grp)))
-        hs = sets[k % _NSETS]
-        hs.wait()
-        offs64, lens64, hdrs64, dstl64 = _batch_arrays(chunks, grp)
-        rc64 = np.zeros(ng, np.int64)
-        bad = nat.stage_flat_dec_batch(
-            src_arr, offs64, lens64, hdrs64, dstl64, rb,
-            hs.np["meta"][:ng], hs.np["starts"][:ng],
-            hs.np["b"][: ng * rb * 128].reshape(ng, rb * 128), rc64,
-            n_threads=_threads())
-        ntr = hs.np["ntr"]
-        ntr[:ng] = np.maximum(rc64, 0)
-        lens = hs.np["lens"]
-        lens[:ng] = dstl64
-        host_rows = set()
-        if bad:
-            for row, i in enumerate(grp):
-                rc = int(rc64[row])
-                if rc >= 0:
-                    continue
-                if rc != -5:
-                    raise CorruptError("invalid chunk payload (flat stage)")
-                # plan over its caps: decode this chunk on the host
-                HOST_FALLBACKS["plan_overflow"] += 1
-                _host_decode_chunk(src_arr, chunks[i], out, dst_offs[i])
-                host_rows.add(row)
-                host_decoded.add(i)
-                ntr[row] = 0
-                lens[row] = 0
-        res = decode_blocks_flat(*_upload_flat(hs, ng, rb, device),
-                                 dst_max=MAX_CHUNK_UNCOMPRESSED)
-        if use_dev_crc:
-            _crc_into(hs, res, device)
-        _fetch(hs.t["res"][:ng], res)
-        hs.record()
-        return grp, hs, host_rows
-
-    for grp, hs, host_rows in _one_behind(range(0, len(comp_idx), BATCH),
-                                          dispatch):
-        hs.wait()
-        if use_dev_crc:
-            _check_crcs([chunks[i] for i in grp], hs.np["crc"], host_rows)
-        res = hs.np["res"]
-        for row, i in enumerate(grp):
-            if row not in host_rows:
-                d = chunks[i][4]
-                out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
-    return host_decoded
+def _dispatch_classify(src_arr, tab: np.ndarray, hs: _HostSet, device,
+                       with_crc: bool):
+    """Classify mode, one batch of compressed chunks (``tab``): native
+    flat plans into ``hs``'s pinned buffers, executed by the flat kernel,
+    CRC'd on the device when asked.  A row whose plan is over its caps
+    decodes on the host instead.  Returns the device rows and {row:
+    decoded bytes} of the rows decoded on the host."""
+    ng = tab.shape[1]
+    # size B rows to the batch's widest payload
+    rb = rows_b_for(_bucket_cmax(int(tab[_LEN].max())))
+    hs.wait()
+    rc64 = np.zeros(ng, np.int64)
+    bad = _native().stage_flat_dec_batch(
+        src_arr, tab[_OFF], tab[_LEN], tab[_HDR], tab[_DST], rb,
+        hs.np["meta"][:ng], hs.np["starts"][:ng],
+        hs.np["b"][: ng * rb * 128].reshape(ng, rb * 128), rc64,
+        n_threads=_threads())
+    ntr = hs.np["ntr"]
+    ntr[:ng] = np.maximum(rc64, 0)
+    lens = hs.np["lens"]
+    lens[:ng] = tab[_DST]
+    host = {}
+    if bad:
+        for row in np.flatnonzero(rc64 < 0).tolist():
+            if rc64[row] != -5:
+                raise CorruptError("invalid chunk payload (flat stage)")
+            # plan over its caps: decode this chunk on the host
+            HOST_FALLBACKS["plan_overflow"] += 1
+            host[row] = _host_decode_chunk(src_arr, tab[:, row])
+            ntr[row] = 0
+            lens[row] = 0
+    res = decode_blocks_flat(*_upload_flat(hs, ng, rb, device),
+                             dst_max=MAX_CHUNK_UNCOMPRESSED)
+    if with_crc:
+        _crc_into(hs, res, device)
+    return res, host
 
 
-def _seq_dec_sets(device, rows: int, host_out: bool):
+def _seq_dec_shapes(rows: int) -> dict:
     """Host sets of the seq and jnp decodes: a batch's payloads (one span
     of the stream for "seq", a padded row each for "jnp"), the per-row
     (starts, clens, dlens, CRC lengths) words and, for "seq", the stored
-    rows' positions and span offsets, and what comes back."""
-    shapes = dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
-                  meta=((6 * rows,), torch.int32),
-                  err=((rows,), torch.int32), crc=((rows,), torch.int64))
-    if host_out:
-        shapes["res"] = ((rows, MAX_CHUNK_UNCOMPRESSED), torch.uint8)
-    return _host_sets(device, **shapes)
-
-
-# the fields of a scanned chunk, ``_scan_frames``' tuples, and the rows
-# of a chunk table (``_chunk_table``)
-_TYPE, _OFF, _LEN, _CRC, _DST, _HDR = range(6)
-
-
-def _chunk_table(chunks) -> np.ndarray:
-    """Scanned chunks as one int64 [6, n] array, a row a field."""
-    n = len(chunks)
-    flat = np.fromiter(itertools.chain.from_iterable(chunks), np.int64,
-                       count=6 * n)
-    return np.ascontiguousarray(flat.reshape(n, 6).T)
-
-
-def _span_batches(tab: np.ndarray, step: int, cap: int) -> list:
-    """(first, end) chunk positions of the seq engine's batches over a
-    chunk table in stream order: ``step`` chunks each, but a batch ends
-    early where its span (its first payload's start to its last
-    payload's end) would pass ``cap`` bytes.  Padding, skippable or
-    stream-identifier chunks between payloads can make a span that
-    long, and so can eight header bytes a row of payloads near
-    ``_DECODE_CMAX``."""
-    off, end = tab[_OFF], tab[_OFF] + tab[_LEN]
-    n, i, out = tab.shape[1], 0, []
-    while i < n:
-        fit = int(np.searchsorted(end, off[i] + cap, "right"))
-        j = min(i + step, max(fit, i + 1))
-        out.append((i, j))
-        i = j
-    return out
+    rows' positions and span offsets, the error codes and the CRCs."""
+    return dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
+                meta=((6 * rows,), torch.int32),
+                err=((rows,), torch.int32), crc=((rows,), torch.int64))
 
 
 def _unmask_crcs(masked: np.ndarray) -> np.ndarray:
@@ -747,7 +702,7 @@ def _unmask_crcs(masked: np.ndarray) -> np.ndarray:
 
 
 def _dispatch_seq(src_arr, tab: np.ndarray, hs: _HostSet, device,
-                  with_crc: bool, host_out: bool) -> torch.Tensor:
+                  with_crc: bool):
     """Stage one batch of the seq engine, ``tab`` its chunk table in
     stream order, and queue its work.  The batch's payloads lie in the
     stream's bytes ``[lo, lo + n)``, from its first payload's start to
@@ -757,10 +712,10 @@ def _dispatch_seq(src_arr, tab: np.ndarray, hs: _HostSet, device,
     element stream in ``[p_off - lo + hdr, p_off - lo + p_len)``.  A
     stored chunk's row decodes as an empty stream and one gather copies
     every stored chunk's bytes from the span into its row.  The CRC
-    kernel checksums the rows when asked; the error codes and CRCs (and
-    with ``host_out`` the decoded rows) come back into ``hs``.  Returns
-    the device rows [len(tab), 64 KiB]; a stored row's bytes past its
-    length are unspecified."""
+    kernel checksums the rows when asked; the error codes and CRCs come
+    back into ``hs``.  Returns the device rows [len(tab), 64 KiB] (a
+    stored row's bytes past its length are unspecified) and no host
+    rows."""
     ng = tab.shape[1]
     ctype, p_off, p_len, _crc, dst_len, hdr = tab
     lo = int(p_off[0])
@@ -779,36 +734,32 @@ def _dispatch_seq(src_arr, tab: np.ndarray, hs: _HostSet, device,
         meta[4, : stored.size] = stored
         meta[5, : stored.size] = rel[stored]
         SEQ_STAGING["span_rows"] += ng
-    with span("snappy.enqueue"):
-        # 64 KiB of room past the span: a stored chunk's window
-        span_d = torch.empty(n + MAX_CHUNK_UNCOMPRESSED, dtype=torch.uint8,
-                             device=device)
-        span_d[:n].copy_(hs.t["comp"][:n], non_blocking=True)
-        COUNTERS["h2d_bytes"] += n
-        meta_d = _upload(hs.t["meta"][: 6 * ng], device).view(6, ng)
-        dec, err = decode_blocks_seq(span_d[:n].expand(ng, n), meta_d[0],
-                                     meta_d[1], meta_d[2],
-                                     out_max=MAX_CHUNK_UNCOMPRESSED)
-        if stored.size:
-            k = stored.size
-            dec[meta_d[4, :k]] = span_d.unfold(
-                0, MAX_CHUNK_UNCOMPRESSED, 1)[meta_d[5, :k]]
-        if with_crc:
-            _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
-        _fetch(hs.t["err"][:ng], err)
-        if host_out:
-            _fetch(hs.t["res"][:ng], dec)
-        hs.record()
-    return dec
+    # 64 KiB of room past the span: a stored chunk's window
+    span_d = torch.empty(n + MAX_CHUNK_UNCOMPRESSED, dtype=torch.uint8,
+                         device=device)
+    span_d[:n].copy_(hs.t["comp"][:n], non_blocking=True)
+    COUNTERS["h2d_bytes"] += n
+    meta_d = _upload(hs.t["meta"][: 6 * ng], device).view(6, ng)
+    dec, err = decode_blocks_seq(span_d[:n].expand(ng, n), meta_d[0],
+                                 meta_d[1], meta_d[2],
+                                 out_max=MAX_CHUNK_UNCOMPRESSED)
+    if stored.size:
+        k = stored.size
+        dec[meta_d[4, :k]] = span_d.unfold(
+            0, MAX_CHUNK_UNCOMPRESSED, 1)[meta_d[5, :k]]
+    if with_crc:
+        _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
+    _fetch(hs.t["err"][:ng], err)
+    return dec, {}
 
 
 def _dispatch_rows(src_arr, tab: np.ndarray, hs: _HostSet, device,
-                   with_crc: bool) -> None:
+                   with_crc: bool):
     """Stage one batch of the jnp engine's compressed chunks (``tab``)
     into ``hs``'s pinned rows, a payload a row at the batch's bucket
     width, upload them, launch the parallel decoder (and the CRC of its
-    rows when asked), and queue the fetch of the error codes, CRCs and
-    decoded rows into ``hs``."""
+    rows when asked), and queue the fetch of the error codes and CRCs
+    into ``hs``.  Returns the device rows and no host rows."""
     ng = tab.shape[1]
     hs.wait()
     with span("snappy.stage"):
@@ -822,28 +773,135 @@ def _dispatch_rows(src_arr, tab: np.ndarray, hs: _HostSet, device,
         hs.np["meta"][: 4 * ng].reshape(4, ng)[:] = tab[[_HDR, _LEN, _DST,
                                                          _DST]]
         SEQ_STAGING["padded_rows"] += ng
-    with span("snappy.enqueue"):
-        comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
-        meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
-        dec, err = _dpar.decode_blocks(comp, meta_d[0], meta_d[1], meta_d[2],
-                                       out_max=MAX_CHUNK_UNCOMPRESSED)
-        if with_crc:
-            _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
-        _fetch(hs.t["err"][:ng], err)
-        _fetch(hs.t["res"][:ng], dec)
-        hs.record()
+    comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
+    meta_d = _upload(hs.t["meta"][: 4 * ng], device).view(4, ng)
+    dec, err = _dpar.decode_blocks(comp, meta_d[0], meta_d[1], meta_d[2],
+                                   out_max=MAX_CHUNK_UNCOMPRESSED)
+    if with_crc:
+        _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[3]))
+    _fetch(hs.t["err"][:ng], err)
+    return dec, {}
 
 
-def _check_seq(tab: np.ndarray, hs: _HostSet, with_crc: bool,
-               messages=ERR_MESSAGES) -> None:
-    """Raise for the first row of a finished batch (``tab``: its chunk
-    table) that failed: its decode error (CorruptError, with
-    ``messages``' text for its code), else its CRC (ChecksumError)."""
+def _hybrid_shapes(rows: int) -> dict:
+    """Host sets of the hybrid decode: payload rows, the records (at most
+    ``_T_CAP`` a row), the per-row (record counts, decoded lengths, CRC
+    lengths) words and the CRCs."""
+    return dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
+                recs=((rows * _T_CAP * 4,), torch.int32),
+                meta=((3 * rows,), torch.int32), crc=((rows,), torch.int64))
+
+
+def _dispatch_hybrid(src_arr, tab: np.ndarray, hs: _HostSet, device,
+                     with_crc: bool):
+    """Stage one batch of chunks (``tab``) for the hybrid engine: payload
+    rows into ``hs``'s pinned rows (at the batch's bucket width), the
+    native parser's records of each compressed one (padded to the
+    batch's record cap, ``record_cap``; CorruptError at the first payload
+    that does not parse), then upload them, run the record executor and, when
+    asked, the CRC kernel, and queue the CRCs back into ``hs``.  A stored
+    chunk's row is its data, executed as no records and copied into
+    place on the device.  Returns the device rows [len(tab), 64 KiB] and
+    no host rows."""
     ng = tab.shape[1]
-    err = hs.np["err"][:ng]
+    ctype, p_off, p_len, _crc, dst_len, _hdr = tab
+    hs.wait()
+    cmax = _bucket_cmax(int(p_len.max()))
+    rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
+    for row, (off, ln) in enumerate(zip(p_off.tolist(), p_len.tolist())):
+        rows[row, :ln] = src_arr[off : off + ln]
+    tmp, parsed = np.empty((_T_CAP, 4), dtype=np.int32), []
+    for row, (t, ln, d, h) in enumerate(zip(*tab[[_TYPE, _LEN, _DST,
+                                                   _HDR]].tolist())):
+        nt = _native().parse_tags(memoryview(rows[row, :ln]), h, d, tmp) \
+            if t == CHUNK_COMPRESSED else 0
+        parsed.append(tmp[:nt].copy())
+    t_cap = record_cap(max(len(p) for p in parsed), _T_CAP)
+    recs = hs.np["recs"][: ng * t_cap * 4].reshape(ng, t_cap, 4)
+    for row, p in enumerate(parsed):
+        recs[row, : len(p)] = p
+    comp = ctype == CHUNK_COMPRESSED
+    meta = hs.np["meta"][: 3 * ng].reshape(3, ng)
+    meta[0] = [len(p) for p in parsed]
+    meta[1] = np.where(comp, dst_len, 0)
+    meta[2] = dst_len
+    comp_d = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
+    recs_d = _upload(hs.t["recs"][: ng * t_cap * 4], device).view(
+        ng, t_cap, 4)
+    meta_d = _upload(hs.t["meta"][: 3 * ng], device).view(3, ng)
+    dec = decode_blocks_pretagged(comp_d, recs_d, meta_d[0], meta_d[1],
+                                  out_max=MAX_CHUNK_UNCOMPRESSED)
+    for row in np.flatnonzero(~comp).tolist():
+        dec[row, : p_len[row]].copy_(comp_d[row, : p_len[row]])
+    if with_crc:
+        _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[2]))
+    return dec, {}
+
+
+def _batch_steps(tab: np.ndarray, device) -> tuple:
+    """BATCH chunks a batch: the sets' width and the batches' (first,
+    end) positions."""
+    n = tab.shape[1]
+    return min(BATCH, n), [(b, min(b + BATCH, n)) for b in range(0, n, BATCH)]
+
+
+def _seq_batches(tab: np.ndarray, device) -> tuple:
+    """The seq engine's batches over a chunk table in stream order: the
+    sets' width and each batch's (first, end) positions.  A batch is the
+    card's launch width of chunks (``_seq_width``), but ends early where
+    its span (its first payload's start to its last payload's end) would
+    pass the pinned buffer, width x ``_DECODE_CMAX`` bytes.  Padding,
+    skippable or stream-identifier chunks between payloads can make a
+    span that long, and so can eight header bytes a row of payloads near
+    ``_DECODE_CMAX``."""
+    step = _seq_width(_dseq.resident_rows, device, MAX_CHUNK_UNCOMPRESSED)
+    n, i, out = tab.shape[1], 0, []
+    width = min(step, n)
+    off, end = tab[_OFF], tab[_OFF] + tab[_LEN]
+    while i < n:
+        fit = int(np.searchsorted(end, off[i] + width * _DECODE_CMAX,
+                                  "right"))
+        out.append((i, min(i + step, max(fit, i + 1))))
+        i = out[-1][1]
+    return width, out
+
+
+class _Decoder(NamedTuple):
+    """One engine's framed decode, as ``_decode_batches`` runs it."""
+    shapes: Callable  # (width) -> its host sets' buffers
+    batches: Callable  # (tab, device) -> (width, [(first, end), ...])
+    dispatch: str  # its dispatch, looked up in the module at the call
+    messages: dict | None  # the texts of its error codes; None: it has none
+    rows: str  # the host set's buffer that holds its rows on the host
+
+
+_DECODERS = {
+    "id": _Decoder(_id_shapes, _batch_steps, "_dispatch_id", None, "panel"),
+    "classify": _Decoder(
+        lambda rows: _flat_dec_shapes(rows, rows_b_for(_DECODE_CMAX)),
+        _batch_steps, "_dispatch_classify", None, "res"),
+    "seq": _Decoder(_seq_dec_shapes, _seq_batches, "_dispatch_seq",
+                    ERR_MESSAGES, "res"),
+    "jnp": _Decoder(_seq_dec_shapes, _batch_steps, "_dispatch_rows",
+                    _dpar.ERR_MESSAGES, "res"),
+    "hybrid": _Decoder(_hybrid_shapes, _batch_steps, "_dispatch_hybrid",
+                       None, "res"),
+}
+
+
+def _check_batch(tab: np.ndarray, hs: _HostSet, with_crc: bool,
+                 messages: dict | None, skip) -> None:
+    """Raise for the first row of a finished batch (``tab``: its chunk
+    table), the rows ``skip`` decoded on the host aside, that failed: its
+    decode error where the engine has error codes (CorruptError, with
+    ``messages``' text for its code), else with ``with_crc`` its CRC
+    (ChecksumError)."""
+    ng = tab.shape[1]
+    err = hs.np["err"][:ng] if messages is not None else np.zeros(ng, int)
     bad = err != 0
     if with_crc:
         bad |= hs.np["crc"][:ng] != _unmask_crcs(tab[_CRC])
+    bad[skip] = False
     if bad.any():
         row = int(bad.argmax())
         if err[row]:
@@ -851,180 +909,69 @@ def _check_seq(tab: np.ndarray, hs: _HostSet, with_crc: bool,
         raise ChecksumError(int(tab[_CRC, row]), None)
 
 
-def _decode_seq_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                        use_dev_crc: bool, device, engine: str = "seq") -> None:
-    """Device LZ engine ("seq") or jnp engine, host output, compressed
-    chunks only: the payloads go up (a span of the stream a batch, or
-    padded rows), the sequential kernel (at the card's width) or the
-    parallel decoder (BATCH rows) decodes them and the CRC kernel
-    checksums them, the decoded rows come back.  Batch k+1 is staged
-    while batch k runs."""
-    seq = engine == "seq"
-    step = _seq_width(_dseq.resident_rows, device,
-                      MAX_CHUNK_UNCOMPRESSED) if seq else BATCH
-    width = min(step, len(comp_idx))
-    sets = _seq_dec_sets(device, width, host_out=True)
-    comp_idx = sorted(comp_idx)  # stream order: a span's payloads ascend
-    tab = _chunk_table([chunks[i] for i in comp_idx])
-    if seq:
-        bounds = _span_batches(tab, step, width * _DECODE_CMAX)
-    else:
-        bounds = [(b, min(b + step, len(comp_idx)))
-                  for b in range(0, len(comp_idx), step)]
+def _decode_batches(engine: str, src_arr, tab: np.ndarray, device,
+                    with_crc: bool, dst) -> np.ndarray:
+    """Decode the chunks of the chunk table ``tab`` (stream order) in
+    ``engine``'s batches (``_DECODERS``), batch k+1 staged and queued
+    while batch k runs, and land each batch in ``dst``:
 
+      - a device tensor, the stream's bytes (``_lands_on_device``): the
+        batch's rows are copied into it on the device once queued;
+      - (out, offs), a host array and each chunk's offset in it: the
+        batch's rows come back into its host set (or are read from the
+        staged panel) and are copied there once it is checked.
+
+    Every batch is checked (``_check_batch``) once it is done.  Returns
+    the positions in ``tab`` of the chunks decoded on the host, whose
+    CRCs the caller checks."""
+    dec = _DECODERS[engine]
+    width, bounds = dec.batches(tab, device)
+    to_dev = isinstance(dst, torch.Tensor)
+    fetch = not to_dev and dec.rows == "res"
+    shapes = dec.shapes(width)
+    if fetch:
+        shapes["res"] = ((width, MAX_CHUNK_UNCOMPRESSED), torch.uint8)
+    sets = _host_sets(device, **shapes)
+    dispatch_batch = globals()[dec.dispatch]
+    on_host = []
+
+    # a batch's spans nest in one enqueue span and one finish span, so
+    # that the profiler's own time between two of them falls in a phase
     def dispatch(k, bound):
-        grp = tab[:, bound[0] : bound[1]]
+        first, end = bound
+        grp = tab[:, first:end]
         hs = sets[k % _NSETS]
-        if seq:
-            _dispatch_seq(src_arr, grp, hs, device, use_dev_crc, host_out=True)
-        else:
-            _dispatch_rows(src_arr, grp, hs, device, use_dev_crc)
-        return comp_idx[bound[0] : bound[1]], grp, hs
+        with span("snappy.enqueue"):
+            rows, host = dispatch_batch(src_arr, grp, hs, device, with_crc)
+            if to_dev:  # every chunk but the stream's last fills its row
+                lo, nb = first * _CRC_CHUNK, int(grp[_DST].sum())
+                full = nb // _CRC_CHUNK
+                if full:
+                    dst[lo : lo + full * _CRC_CHUNK].view(
+                        full, _CRC_CHUNK).copy_(rows[:full, :_CRC_CHUNK])
+                if nb > full * _CRC_CHUNK:
+                    dst[lo + full * _CRC_CHUNK : lo + nb].copy_(
+                        rows[full, : nb - full * _CRC_CHUNK])
+            elif fetch:
+                _fetch(hs.t["res"][: end - first], rows)
+            hs.record()
+        return first, grp, hs, host
 
-    messages = ERR_MESSAGES if seq else _dpar.ERR_MESSAGES
-    for idx, grp, hs in _one_behind(bounds, dispatch):
-        hs.wait()
+    for first, grp, hs, host in _one_behind(bounds, dispatch):
         with span("snappy.finish"):
-            _check_seq(grp, hs, use_dev_crc, messages)
-            res = hs.np["res"]
-            for row, i in enumerate(idx):
-                d = chunks[i][4]
-                out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
-
-
-def _hybrid_sets(device, rows: int, host_out: bool):
-    """Host sets of the hybrid decode: payload rows, the records (at most
-    ``_T_CAP`` a row), the per-row (record counts, decoded lengths, CRC
-    lengths) words, and what comes back."""
-    shapes = dict(comp=((rows * _DECODE_CMAX,), torch.uint8),
-                  recs=((rows * _T_CAP * 4,), torch.int32),
-                  meta=((3 * rows,), torch.int32),
-                  crc=((rows,), torch.int64))
-    if host_out:
-        shapes["res"] = ((rows, MAX_CHUNK_UNCOMPRESSED), torch.uint8)
-    return _host_sets(device, **shapes)
-
-
-def _parse_rows(rows: np.ndarray, grp) -> list:
-    """The native parser's records of each compressed chunk of ``grp``
-    (its payload staged in ``rows``), an empty array for a stored one.
-    Raises CorruptError at the first payload that does not parse."""
-    nat = _native()
-    tmp = np.empty((_T_CAP, 4), dtype=np.int32)
-    parsed = []
-    for row, (ctype, _p_off, p_len, _crc, dst_len, hdr) in enumerate(grp):
-        nt = 0
-        if ctype == CHUNK_COMPRESSED:
-            nt = nat.parse_tags(memoryview(rows[row, :p_len]), hdr, dst_len,
-                                tmp)
-        parsed.append(tmp[:nt].copy())
-    return parsed
-
-
-def _dispatch_hybrid(src_arr, grp, hs: _HostSet, device, with_crc: bool,
-                     host_out: bool) -> torch.Tensor:
-    """Stage one batch of scanned chunks for the hybrid engine: payload
-    rows into ``hs``'s pinned rows (at the batch's bucket width), the
-    native parser's records of each (padded to the batch's record cap,
-    ``record_cap``), then upload them, run the record executor and, when
-    asked, the CRC kernel, and queue the CRCs (and with ``host_out`` the
-    rows) back into ``hs``.  A stored chunk's row is its data, executed
-    as no records and copied into place on the device.  Returns the
-    device rows [len(grp), 64 KiB]."""
-    ng = len(grp)
-    hs.wait()
-    cmax = _bucket_cmax(max(ch[2] for ch in grp))
-    rows = hs.np["comp"][: ng * cmax].reshape(ng, cmax)
-    for row, ch in enumerate(grp):
-        rows[row, : ch[2]] = src_arr[ch[1] : ch[1] + ch[2]]
-    parsed = _parse_rows(rows, grp)
-    t_cap = record_cap(max(len(p) for p in parsed), _T_CAP)
-    recs = hs.np["recs"][: ng * t_cap * 4].reshape(ng, t_cap, 4)
-    meta = hs.np["meta"][: 3 * ng].reshape(3, ng)
-    for row, (p, ch) in enumerate(zip(parsed, grp)):
-        recs[row, : len(p)] = p
-        compressed = ch[0] == CHUNK_COMPRESSED
-        meta[:, row] = (len(p), ch[4] if compressed else 0, ch[4])
-    comp = _upload(hs.t["comp"][: ng * cmax], device).view(ng, cmax)
-    recs_d = _upload(hs.t["recs"][: ng * t_cap * 4], device).view(
-        ng, t_cap, 4)
-    meta_d = _upload(hs.t["meta"][: 3 * ng], device).view(3, ng)
-    dec = decode_blocks_pretagged(comp, recs_d, meta_d[0], meta_d[1],
-                                  out_max=MAX_CHUNK_UNCOMPRESSED)
-    for row, ch in enumerate(grp):
-        if ch[0] != CHUNK_COMPRESSED:
-            dec[row, : ch[2]].copy_(comp[row, : ch[2]])
-    if with_crc:
-        _fetch(hs.t["crc"][:ng], crc32c_chunks(dec, meta_d[2]))
-    if host_out:
-        _fetch(hs.t["res"][:ng], dec)
-    hs.record()
-    return dec
-
-
-def _decode_hybrid_batches(src_arr, chunks, comp_idx, dst_offs, out,
-                           use_dev_crc: bool, device) -> None:
-    """Hybrid engine, host output: the native parser's records and the
-    payloads go up, the record executor builds the rows and the CRC
-    kernel checks them, the rows come back.  Batch k+1 is parsed and
-    staged while batch k runs."""
-    sets = _hybrid_sets(device, min(BATCH, len(comp_idx)), host_out=True)
-
-    def dispatch(k, base):
-        grp = [chunks[i] for i in comp_idx[base : base + BATCH]]
-        hs = sets[k % _NSETS]
-        _dispatch_hybrid(src_arr, grp, hs, device, use_dev_crc, host_out=True)
-        return comp_idx[base : base + BATCH], grp, hs
-
-    for idx, grp, hs in _one_behind(range(0, len(comp_idx), BATCH), dispatch):
-        hs.wait()
-        if use_dev_crc:
-            _check_crcs(grp, hs.np["crc"])
-        res = hs.np["res"]
-        for row, i in enumerate(idx):
-            d = chunks[i][4]
-            out[dst_offs[i] : dst_offs[i] + d] = res[row, :d]
-
-
-def stage_id_rows(src_arr: np.ndarray, grp, b_u8: np.ndarray,
-                  dlens: np.ndarray) -> None:
-    """Id-stage one group of scanned framed chunks into staging rows:
-    compressed chunks decode through the threaded native id walk in
-    contiguous runs, uncompressed chunks are their payload.  Fills
-    dlens per row; raises CorruptError on an invalid payload.  Without
-    the native library each compressed row decodes on the host
-    (``_host_decode_chunk``), as in the JAX package."""
-    comp_rows = []
-    for row, ch in enumerate(grp):
-        dlens[row] = ch[4]
-        if ch[0] == CHUNK_COMPRESSED:
-            comp_rows.append(row)
-        else:  # uncompressed: the row is the payload
-            _t, p_off, p_len, _c, _d, _h = ch
-            b_u8[row, :p_len] = src_arr[p_off : p_off + p_len]
-            b_u8[row, p_len:] = 0
-    if not native.available():
-        for row in comp_rows:
-            _host_decode_chunk(src_arr, grp[row], b_u8[row], 0)
-            b_u8[row, grp[row][4]:] = 0
-        return
-    r = 0
-    while r < len(comp_rows):
-        r2 = r
-        while (r2 + 1 < len(comp_rows)
-               and comp_rows[r2 + 1] == comp_rows[r2] + 1):
-            r2 += 1
-        rows = comp_rows[r : r2 + 1]
-        offs64, lens64, hdrs64, dstl64 = _batch_arrays(grp, rows)
-        rc64 = np.zeros(len(rows), np.int64)
-        bad = _native_call(
-            native.stage_flat_dec_id_batch,
-            src_arr, offs64, lens64, hdrs64, dstl64, b_u8.shape[1] // 128,
-            b_u8[rows[0] : rows[0] + len(rows)], rc64,
-            n_threads=_threads())
-        if bad:
-            raise CorruptError("invalid chunk payload (flat stage)")
-        r = r2 + 1
+            hs.wait()
+            _check_batch(grp, hs, with_crc, dec.messages, list(host))
+            if not to_dev:
+                out, offs = dst
+                got = hs.np[dec.rows]
+                for row, (off, d) in enumerate(zip(
+                        offs[first : first + grp.shape[1]].tolist(),
+                        grp[_DST].tolist())):
+                    out[off : off + d] = host[row] if row in host \
+                        else got[row, :d]
+        on_host += [first + row for row in host]
+    _release(sets)
+    return np.array(on_host, np.int64)
 
 
 @_entry
@@ -1045,84 +992,23 @@ def decompress_framed_to_device(data: bytes, verify_checksums: bool = True,
     only the CRC values come back.
     Streams whose chunks are not all full 64 KiB rows but the last, and
     the classify and jnp engines, decode through ``decompress_framed``
-    and upload the result."""
+    and upload the result (``_lands_on_device``)."""
     # the phases tile the call: the stream read and its path picked, the
-    # buffers made, the batches, the buffers given back.  A batch's spans
-    # nest in one enqueue span and one finish span, so that the profiler's
-    # own time between two of them falls in a phase, not in the call
+    # output made, the batches (their sets made and given back)
     with span("snappy.scan"):
         chunks, total = _scan_frames(data)
-        uniform = total > 0 and all(
-            ch[4] == _CRC_CHUNK for ch in chunks[:-1]) and all(
-            ch[2] <= _DECODE_CMAX for ch in chunks
-            if ch[0] == CHUNK_COMPRESSED)
+        tab = _chunk_table(chunks)
         device = resolve(device)
         engine = _decode_engine(verify_checksums and DEVICE_CRC)
-    if not (engine in ("id", "seq", "hybrid") and DEVICE_CRC and uniform):
+        to_dev = _lands_on_device(engine, tab, total)
+    if not to_dev:
         return _upload_bytes(
             decompress_framed(data, verify_checksums, device=device), device)
     COUNTERS["bytes"] += total
     with span("snappy.alloc"):
-        src_arr = np.frombuffer(data, np.uint8)
         out = torch.empty(total, dtype=torch.uint8, device=device)
-        seq = engine == "seq"
-        if seq:
-            step = _seq_width(_dseq.resident_rows, device,
-                              MAX_CHUNK_UNCOMPRESSED)
-            width = min(step, len(chunks))
-            sets = _seq_dec_sets(device, width, host_out=False)
-        elif engine == "hybrid":
-            step = BATCH
-            sets = _hybrid_sets(device, min(step, len(chunks)),
-                                host_out=False)
-        else:
-            step = BATCH
-            sets = _id_sets(device)
-    if seq:
-        with span("snappy.stage"):
-            tab = _chunk_table(chunks)
-            bounds = _span_batches(tab, step, width * _DECODE_CMAX)
-    else:
-        bounds = [(b, min(b + step, len(chunks)))
-                  for b in range(0, len(chunks), step)]
-
-    def dispatch(k, bound):
-        base, end = bound
-        with span("snappy.enqueue"):
-            hs = sets[k % _NSETS]
-            if seq:
-                grp = tab[:, base:end]
-                rows = _dispatch_seq(src_arr, grp, hs, device,
-                                     verify_checksums, host_out=False)
-                nb = int(grp[_DST].sum())
-            else:
-                grp = chunks[base:end]
-                if engine == "hybrid":
-                    rows = _dispatch_hybrid(src_arr, grp, hs, device,
-                                            verify_checksums, host_out=False)
-                else:
-                    rows = _dispatch_id(src_arr, grp, hs, device,
-                                        verify_checksums)
-                nb = sum(ch[4] for ch in grp)
-            # every chunk but the stream's last fills its 64 KiB row
-            lo = base * _CRC_CHUNK
-            full = nb // _CRC_CHUNK
-            if full:
-                out[lo : lo + full * _CRC_CHUNK].view(full, _CRC_CHUNK).copy_(
-                    rows[:full, :_CRC_CHUNK])
-            if nb > full * _CRC_CHUNK:
-                out[lo + full * _CRC_CHUNK : lo + nb].copy_(
-                    rows[full, : nb - full * _CRC_CHUNK])
-        return grp, hs
-
-    for grp, hs in _one_behind(bounds, dispatch):
-        with span("snappy.finish"):
-            hs.wait()
-            if seq:
-                _check_seq(grp, hs, verify_checksums)
-            elif verify_checksums:
-                _check_crcs(grp, hs.np["crc"])
-    _release(sets)
+    _decode_batches(engine, np.frombuffer(data, np.uint8), tab, device,
+                    verify_checksums, out)
     return out
 
 
@@ -1143,7 +1029,7 @@ def _decompress_raw_flat(data: bytes, dst_len: int, hdr: int,
     img = np.zeros(65536 + _RAW_SEG + 64, np.uint8)
     out = torch.empty(nseg * _RAW_SEG, dtype=torch.uint8, device=device)
     out_rows = out.view(nseg, _RAW_SEG)
-    sets = _flat_dec_sets(device, width, rb, 0)
+    sets = _host_sets(device, **_flat_dec_shapes(width, rb))
     done = 0
     seg0 = 0
     k = 0
@@ -1189,13 +1075,12 @@ def decompress(data: bytes, device=None) -> bytes:
     if not native.available():
         return _dpar.decode_block_par(data, dst_len, start=hdr,
                                       device=resolve(device))
-    nat = native
-    if PALLAS and FLAT and FLAT_MODE != "id":
+    if _decode_engine(False) == "classify":  # a raw stream has no CRCs
         got = _decompress_raw_flat(data, dst_len, hdr, resolve(device))
         if got is not None:
             return got.cpu().numpy().tobytes()
         HOST_FALLBACKS["plan_overflow"] += 1
-    return nat.decompress(data)
+    return native.decompress(data)
 
 
 @_entry
@@ -1218,15 +1103,13 @@ def decompress_to_device(data: bytes, device=None) -> torch.Tensor:
         return _dpar.decode_block_par_to_device(data, dst_len, start=hdr,
                                                 device=device)
     nat = native
-    if not (PALLAS and FLAT):
-        return _upload_bytes(nat.decompress(data), device)
-    if FLAT_MODE != "id":
+    engine = _decode_engine(False)  # a raw stream has no CRCs
+    if engine == "classify":
         got = _decompress_raw_flat(data, dst_len, hdr, device)
         if got is not None:
             return got
         HOST_FALLBACKS["plan_overflow"] += 1
-        return _upload_bytes(nat.decompress(data), device)
-    if dst_len == 0:
+    if engine != "id" or dst_len == 0:
         return _upload_bytes(nat.decompress(data), device)
     arr = np.frombuffer(data, np.uint8)
     nseg = (dst_len + _RAW_SEG - 1) // _RAW_SEG
@@ -1280,7 +1163,7 @@ def _encode_batches(data, chunk_size: int, device):
     bmax = 256
     while bmax < chunk_size:
         bmax *= 2
-    use_id = FLAT_MODE == "id" and bmax == MAX_CHUNK_UNCOMPRESSED
+    use_id = _encode_engine() == "id" and bmax == MAX_CHUNK_UNCOMPRESSED
     rows = min(BATCH, n_chunks)
     elem_buf = np.empty(
         (rows, nat.max_compressed_length(MAX_BLOCK_SIZE) + 8), np.uint8)
@@ -1559,26 +1442,22 @@ def _seq_rows(src, lo: int, nb: int, cnt: int, cs: int, hs: _HostSet,
     return _upload(hs.t["blocks"][: cnt * cs], device).view(cnt, cs)
 
 
-def _encode_seq(src, cs: int, device, with_chunks: bool):
-    """Device LZ engine: yield (chunk_index, chunk_len, element, chunk)
-    for the cs-byte chunks of ``src``, host bytes or a flat uint8 tensor
-    on ``device``; ``chunk`` is the chunk's bytes where ``with_chunks``
-    asks for them and ``src`` is on the device (the host CRCs them),
-    else None.
+def _encode_seq(src, cs: int, device):
+    """Device LZ engine, raw: yield (chunk_index, chunk_len, element) for
+    the cs-byte chunks of ``src``, host bytes or a flat uint8 tensor on
+    ``device``.
 
     Host bytes go up through pinned rows; a device tensor is encoded in
     place.  The sequential kernel encodes each batch of chunk rows.  What
     comes back is each batch's lengths, then its elements cut to the
-    batch's longest (and with ``with_chunks`` the batch's bytes, in one
-    copy); the trimmed fetch of batch k is queued while batch k+1 is
-    staged, when its lengths are on the host.  The framed encode with
-    the CRCs on the device is ``_compress_framed_seq``."""
+    batch's longest; the trimmed fetch of batch k is queued while batch
+    k+1 is staged, when its lengths are on the host.  The framed encode
+    is ``_compress_framed_seq``."""
     on_dev = isinstance(src, torch.Tensor)
     n = int(src.numel()) if on_dev else len(src)
     n_chunks = -(-n // cs)
     if n_chunks == 0:
         return
-    chunks = with_chunks and on_dev
     with span("snappy.alloc"):
         step = _seq_width(_eseq.resident_rows, device, cs)
         rows_n = min(step, n_chunks)
@@ -1586,10 +1465,8 @@ def _encode_seq(src, cs: int, device, with_chunks: bool):
         shapes = dict(lens=((rows_n,), torch.int32),
                       clens=((rows_n,), torch.int32),
                       comp=((rows_n * cap,), torch.uint8))
-        # device input: the chunks the host fetches; host input: staging
-        if chunks or not on_dev:
-            shapes["chunks" if on_dev else "blocks"] = ((rows_n * cs,),
-                                                        torch.uint8)
+        if not on_dev:  # host input: staging
+            shapes["blocks"] = ((rows_n * cs,), torch.uint8)
         sets = _host_sets(device, **shapes)
         if not on_dev:
             src = np.frombuffer(src, np.uint8)
@@ -1625,8 +1502,6 @@ def _encode_seq(src, cs: int, device, with_chunks: bool):
             lens_d = _upload(hs.t["lens"][:cnt], device)
             comp, clens, _err = encode_blocks_seq(rows, lens_d)  # valid lens
             _fetch(hs.t["clens"][:cnt], clens)
-            if chunks:
-                _fetch(hs.t["chunks"][:nb], src[lo : lo + nb])
             hs.record()
             b = dict(base=base, cnt=cnt, hs=hs, comp=comp, lens=lens,
                      kmax=None)
@@ -1643,17 +1518,14 @@ def _encode_seq(src, cs: int, device, with_chunks: bool):
             comp = hs.np["comp"][: b["cnt"] * b["kmax"]].reshape(b["cnt"],
                                                                 b["kmax"])
             for i in range(b["cnt"]):
-                ln = int(b["lens"][i])
-                yield (b["base"] + i, ln,
-                       comp[i, : hs.np["clens"][i]].tobytes(),
-                       hs.np["chunks"][i * cs : i * cs + ln]
-                       if chunks else None)
+                yield (b["base"] + i, int(b["lens"][i]),
+                       comp[i, : hs.np["clens"][i]].tobytes())
     _release(sets)
 
 
 def _compress_framed_seq(parts, cs: int) -> bytes:
-    """Device LZ engine, framed, with the CRCs on the device: the framed
-    stream of the cs-byte chunks of each of ``parts``, one part after
+    """Device LZ engine, framed, with the CRCs on the device whatever
+    ``DEVICE_CRC`` says: the framed stream of the cs-byte chunks of each of ``parts``, one part after
     another.  A part is (device, src, tally): ``src`` host bytes or a
     flat uint8 tensor on ``device``, and ``tally`` None or, for a shard
     of a mesh, the callable ``tally(d2h_bytes, crc_launches)`` that
@@ -1669,8 +1541,7 @@ def _compress_framed_seq(parts, cs: int) -> bytes:
     and once the next batch is queued the host copies them on into the
     result, a ``bytes`` of the stream's bound filled in place and cut
     to the stream's length (``native._fill_bytes_exact``, plain C-API
-    calls that need no native library): one host copy of the stream.
-    ``FRAMED["device_framed_chunks"]`` counts the records."""
+    calls that need no native library): one host copy of the stream."""
     batches, widths, n_all, chunks_all = [], {}, 0, 0
     for device, src, tally in parts:
         if not isinstance(src, torch.Tensor):
@@ -1744,7 +1615,6 @@ def _compress_framed_seq(parts, cs: int) -> bytes:
                                          crc32c_chunks(rows, lens_d))
             _fetch(hs.t["ends"][:cnt], ends)
             hs.record()
-            FRAMED["device_framed_chunks"] += cnt
             if tally is not None:
                 tally(8 * cnt, 1)
         return dict(cnt=cnt, hs=hs, framed=framed, tally=tally)
@@ -1776,24 +1646,15 @@ def compress(data: bytes, device=None) -> bytes:
     device = resolve(device)
     out = bytearray(put_uvarint(len(data)))
     engine = _encode_engine()
-    if engine == "flat":
-        for _, _, blob in _encode_batches(data, MAX_BLOCK_SIZE, device):
-            out += blob
+    if engine == "seq":
+        blobs = _encode_seq(data, MAX_BLOCK_SIZE, device)
     elif engine == "jnp":
-        for _, _, blob, _, _ in _encode_jnp(data, MAX_BLOCK_SIZE, device):
-            out += blob
+        blobs = _encode_jnp(data, MAX_BLOCK_SIZE, device)
     else:
-        for _, _, elem, _ in _encode_seq(data, MAX_BLOCK_SIZE, device,
-                                         with_chunks=False):
-            out += elem
+        blobs = _encode_batches(data, MAX_BLOCK_SIZE, device)
+    for _, _, blob, *_ in blobs:
+        out += blob
     return bytes(out)
-
-
-def _frames_on_device(engine: str) -> bool:
-    """Whether a framed encode writes its records on the device
-    (``_compress_framed_seq``): the seq engine with its CRCs on the
-    device, which it always has without the native library."""
-    return engine == "seq" and (DEVICE_CRC or not native.available())
 
 
 @_entry
@@ -1802,32 +1663,28 @@ def compress_framed(data: bytes, chunk_size: int = MAX_CHUNK_UNCOMPRESSED,
     """Framed (.sz) stream.  Id mode with 64 KiB chunks: device CRCs
     plus one native matcher-and-assembly call per batch.  Device LZ
     engine: elements, CRCs and the records themselves from the device
-    (``_compress_framed_seq``); with ``DEVICE_CRC`` off, elements from
-    ``_encode_seq`` with host CRCs.  jnp engine: elements from
-    ``_encode_jnp`` with host CRCs, as in the JAX package.  Otherwise
-    chunk elements from ``_encode_batches`` with host CRCs.  Without the
-    native library every CRC comes from the CRC kernel, beside the jnp
-    or seq engine's encode of the same rows."""
+    (``_compress_framed_seq``), whatever ``DEVICE_CRC`` says.  jnp
+    engine: elements from ``_encode_jnp`` with host CRCs, as in the JAX
+    package.  Otherwise chunk elements from ``_encode_batches`` with host
+    CRCs.  Without the native library every CRC comes from the CRC
+    kernel, beside the jnp or seq engine's encode of the same rows."""
     if not 0 < chunk_size <= MAX_CHUNK_UNCOMPRESSED:
         raise ValueError(f"chunk_size must be in (0, 65536], got {chunk_size}")
     COUNTERS["bytes"] += len(data)
     device = resolve(device)
     engine = _encode_engine()
-    if (engine == "flat" and FLAT_MODE == "id"
-            and chunk_size == MAX_CHUNK_UNCOMPRESSED and len(data)):
+    if (engine == "id" and chunk_size == MAX_CHUNK_UNCOMPRESSED
+            and len(data)):
         return _compress_framed_id(data, device)
-    if _frames_on_device(engine):
+    if engine == "seq":
         return _compress_framed_seq([(device, data, None)], chunk_size)
-    if engine == "flat":
-        chunks = ((idx, ln, blob, None) for idx, ln, blob
-                  in _encode_batches(data, chunk_size, device))
-    elif engine == "jnp":
+    if engine == "jnp":
         chunks = ((idx, ln, elem, crc) for idx, ln, elem, crc, _
                   in _encode_jnp(data, chunk_size, device,
                                  not native.available()))
-    else:  # seq, host CRCs
-        chunks = ((idx, ln, elem, None) for idx, ln, elem, _
-                  in _encode_seq(data, chunk_size, device, with_chunks=False))
+    else:
+        chunks = ((idx, ln, blob, None) for idx, ln, blob
+                  in _encode_batches(data, chunk_size, device))
     data_v = memoryview(data)
     out = bytearray(STREAM_ID_CHUNK)
     for idx, chunk_len, blob, crc in chunks:
@@ -1901,13 +1758,12 @@ def compress_framed_from_device(arr, lens=None, device=None) -> bytes:
     ``compress_framed(bytes(arr))`` in id mode: same matcher, same CRCs.
     Device LZ engine: the tensor's chunks are encoded and CRC'd where
     they lie and their records written on the device
-    (``_compress_framed_seq``): only the stream comes back; with
-    ``DEVICE_CRC`` off, the elements and every chunk's bytes come back
-    (``_encode_seq``) and the host CRCs and frames them.  The jnp engine
-    takes the id path, as the JAX package does.  Without the native
-    library the jnp engine (or the seq engine, where it is picked)
-    encodes the tensor's chunks in place and the CRC kernel checksums
-    them: the bytes of ``compress_framed(bytes(arr))``.
+    (``_compress_framed_seq``): only the stream comes back.  The
+    classify and jnp engines take the id path, as the JAX package's do
+    (``_from_device_engine``).  Without the native library the jnp
+    engine (or the seq engine, where it is picked) encodes the tensor's
+    chunks in place and the CRC kernel checksums them: the bytes of
+    ``compress_framed(bytes(arr))``.
 
     With ``lens``, ``arr`` is chunk rows sharded over a mesh, a
     ``dist.mesh.ShardedRows`` of uint8 [B, 65536], and ``lens`` the valid
@@ -1926,32 +1782,25 @@ def compress_framed_from_device(arr, lens=None, device=None) -> bytes:
     COUNTERS["bytes"] += n
     if n == 0:
         return bytes(STREAM_ID_CHUNK)
-    return _framed_from_device([(device, arr, None)], _encode_engine())
+    return _framed_from_device([(device, arr, None)],
+                               _from_device_engine(False))
 
 
 def _framed_from_device(parts, engine: str) -> bytes:
     """The framed stream of the 64 KiB chunks of each of ``parts`` (as
     ``_compress_framed_seq`` takes them, each ``src`` a flat tensor on
     its device), one part after another, by ``engine``'s from-device
-    path."""
+    path (``_from_device_engine``'s pick)."""
     cs = MAX_CHUNK_UNCOMPRESSED
-    if _frames_on_device(engine):
+    if engine == "seq":
         return _compress_framed_seq(parts, cs)
-    if engine == "seq" or not native.available():
+    if engine == "jnp":  # without the native library: device CRCs, and
+        # the stored chunks' bytes come back
         out = bytearray(STREAM_ID_CHUNK)
-        for device, arr, tally in parts:
-            d2h = COUNTERS["d2h_bytes"]
-            if engine == "seq":  # host CRCs of the chunks' bytes
-                recs = ((ln, elem, native.crc32c(chunk.tobytes()), chunk)
-                        for _, ln, elem, chunk
-                        in _encode_seq(arr, cs, device, with_chunks=True))
-            else:  # device CRCs; the stored chunks' bytes come back
-                recs = ((ln, elem, crc, stored) for _, ln, elem, crc, stored
-                        in _encode_jnp(arr, cs, device, with_crc=True))
-            for ln, elem, crc, raw in recs:
-                out += _framed_record(ln, elem, crc, raw)
-            if tally is not None:  # a shard: the seq engine, host CRCs
-                tally(COUNTERS["d2h_bytes"] - d2h, 0)
+        for device, arr, _tally in parts:
+            for _, ln, elem, crc, stored in _encode_jnp(arr, cs, device,
+                                                        with_crc=True):
+                out += _framed_record(ln, elem, crc, stored)
         with span("snappy.finish"):
             return bytes(out)
     return _framed_id_from_device(parts)
@@ -2041,8 +1890,7 @@ def _compress_framed_sharded(rows, lens, device) -> bytes:
                          "shard is encoded on its own device")
     parts, total = mesh.framed_parts(rows, lens)
     COUNTERS["bytes"] += total
-    engine = _encode_engine() if native.available() else "seq"
-    return _framed_from_device(parts, engine)
+    return _framed_from_device(parts, _from_device_engine(True))
 
 
 @_entry
@@ -2058,11 +1906,11 @@ def compress_from_device(arr: torch.Tensor, device=None) -> bytes:
     ``compress(bytes(arr))``)."""
     _check_uint8(arr)
     COUNTERS["bytes"] += int(arr.numel())
-    engine = _encode_engine()
-    if engine == "seq" or not native.available():
+    engine = _from_device_engine(False)
+    if engine != "id":
         device = arr.device if device is None else resolve(device)
         arr = arr.to(device).reshape(-1)
-        elems = (_encode_seq(arr, MAX_BLOCK_SIZE, device, with_chunks=False)
+        elems = (_encode_seq(arr, MAX_BLOCK_SIZE, device)
                  if engine == "seq" else _encode_jnp(arr, MAX_BLOCK_SIZE,
                                                      device))
         out = bytearray(put_uvarint(int(arr.numel())))

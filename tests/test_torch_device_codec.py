@@ -170,25 +170,35 @@ def test_seq_engine_at_a_wide_launch_width(nprng, monkeypatch, width):
 @pytest.mark.parametrize("path", ["seq", "seq, host CRCs", "id"])
 def test_framed_records_written_on_the_device(nprng, monkeypatch, width,
                                               path):
-    """The seq engine with device CRCs writes every framed record on the
-    device (``frame_records``), at launch widths other than BATCH, the
-    last batch ragged; the seq engine with host CRCs and the id engine
-    assemble them on the host.  Every stream equals
-    native.compress_framed, stored chunks and short last chunks too."""
+    """The seq engine writes every framed record on the device
+    (``frame_records``), at launch widths other than BATCH, the last
+    batch ragged, and so it does with ``DEVICE_CRC`` off ("seq, host
+    CRCs": its encode computes its CRCs on the device whatever that
+    variable says); the id engine assembles them on the host.  Every
+    stream equals native.compress_framed, stored chunks and short last
+    chunks too.  The records framed are counted at ``frame_records``'s
+    call, since its ``launches`` counts only the kernel's CUDA calls."""
     if path != "id":
         monkeypatch.setattr(dc, "FLAT", False)
         monkeypatch.setattr(dc, "HOST_PARSE", False)
         monkeypatch.setattr(dc, "_seq_width", lambda *a: width)
     monkeypatch.setattr(dc, "DEVICE_CRC", path != "seq, host CRCs")
+    framed, real = [], dc.frame_records
+
+    def spy(rows, *args):
+        framed.append(rows.shape[0])
+        return real(rows, *args)
+
+    monkeypatch.setattr(dc, "frame_records", spy)
     data = (b"framed on the device " * 30_000 + nprng.bytes(70_000)
             + b"tail" * 30)[: 65536 * 10 + 120]
     n_chunks = -(-len(data) // 65536)
     want = native.compress_framed(data)
-    before = dc.FRAMED["device_framed_chunks"]
     assert dc.compress_framed_from_device(_tensor(data)) == want
     assert dc.compress_framed(data, device="cpu") == want
-    moved = dc.FRAMED["device_framed_chunks"] - before
-    assert moved == (2 * n_chunks if path == "seq" else 0)
+    # a call a batch of the launch width, the last batch ragged
+    batches = [min(width, n_chunks - b) for b in range(0, n_chunks, width)]
+    assert framed == ([] if path == "id" else batches * 2)
 
 
 @pytest.mark.parametrize("call", ["from_device", "host bytes"])
@@ -723,3 +733,58 @@ def test_jnp_engine_stages_padded_rows(monkeypatch, nprng):
     _decodes_like_jax(stream, data)
     assert dc.SEQ_STAGING["padded_rows"] - before["padded_rows"] == 2 * 2
     assert dc.SEQ_STAGING["span_rows"] == before["span_rows"]
+
+
+# ---------------------------------------------------------------------
+# every engine's framed decode through the one batch driver
+
+ENGINES = {"id": {}, "classify": {"FLAT_MODE": "classify"},
+           "seq": {"FLAT": False, "HOST_PARSE": False},
+           "hybrid": {"FLAT": False, "HOST_PARSE": True},
+           "jnp": {"PALLAS": False, "HOST_PARSE": False}}
+
+
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_every_engine_decodes_in_batches_to_both_destinations(
+        engine, nprng, monkeypatch):
+    """Each engine's framed decode at BATCH=2, to the host and to the
+    device, of eight chunks (five compressed, two stored, a short stored
+    last one) with padding, skippable and stream-identifier chunks
+    between the payloads: three or four batches take turns on the two
+    host sets.  A CRC flipped in a compressed chunk of the first or the
+    last batch, or in a stored chunk, raises ChecksumError from both
+    entry points; unverified, both return the data."""
+    for attr, value in ENGINES[engine].items():
+        monkeypatch.setattr(dc, attr, value)
+    monkeypatch.setattr(dc, "BATCH", 2)
+    assert dc._decode_engine(True) == engine
+    text = b"a batch of the driver " * 30_000
+    data = (text[:65536] + nprng.bytes(65536) + text[7:65543]
+            + text[99:65635] + nprng.bytes(65536) + text[5:65541]
+            + text[11:65547] + nprng.bytes(1000))
+    recs = _records(native.compress_framed(data))
+    assert [r[0] for r in recs] == [0, 1, 0, 0, 1, 0, 0, 1]
+    between = {0: _chunk(0xFE, bytes(300)), 2: _chunk(0x80, nprng.bytes(77)),
+               5: bytes(dc.STREAM_ID_CHUNK)}
+
+    def stream(flip=None) -> bytes:
+        out = bytearray(dc.STREAM_ID_CHUNK)
+        for i, r in enumerate(recs):
+            r = bytearray(r)
+            if i == flip:
+                r[4] ^= 0x01
+            out += r + between.get(i, b"")
+        return bytes(out)
+
+    assert dc.decompress_framed(stream(), device="cpu") == data
+    assert dc.decompress_framed_to_device(
+        stream(), device="cpu").numpy().tobytes() == data
+    for flip in (0, 4, 6):
+        bad = stream(flip)
+        with pytest.raises(ChecksumError):
+            dc.decompress_framed(bad, device="cpu")
+        with pytest.raises(ChecksumError):
+            dc.decompress_framed_to_device(bad, device="cpu")
+        assert dc.decompress_framed(bad, False, device="cpu") == data
+        assert dc.decompress_framed_to_device(
+            bad, False, device="cpu").numpy().tobytes() == data

@@ -189,13 +189,18 @@ def test_sharded_spans_nest_under_the_root(engine, mesh):
 
 
 @pytest.mark.parametrize("engine", ["seq"], indirect=True)
-def test_seq_engine_with_host_crcs(engine, mesh, shards, monkeypatch):
-    """``SNAPPY_TPU_DEVICE_CRC=0``: each shard's elements and chunks come
-    back and the host CRCs and frames them; no card launches a CRC."""
+def test_seq_engine_keeps_its_crcs_on_the_cards(engine, mesh, shards,
+                                                monkeypatch):
+    """``SNAPPY_TPU_DEVICE_CRC=0`` leaves the seq engine's encode on the
+    cards: each card with rows launches its CRC and writes its records,
+    and only each record and its 8-byte end offset come back."""
     monkeypatch.setattr(dc, "DEVICE_CRC", False)
     data = _object("stored_between")
     rows, lens = _lay_out(mesh, data)
-    assert dc.compress_framed_from_device(rows, lens) == plain.frame(data)
-    assert shards["crc_launches"] == [0] * CARDS
+    want = plain.frame(data)
+    assert dc.compress_framed_from_device(rows, lens) == want
     # five rows, two a shard: the last shard holds only padding
-    assert all(shards["d2h_bytes"][:3]) and shards["d2h_bytes"][3] == 0
+    assert shards["crc_launches"] == [1, 1, 1, 0]
+    recs = dm.split_records(want, len(plain.STREAM_ID))
+    assert shards["d2h_bytes"] == [
+        sum(len(r) + 8 for r in recs[2 * k : 2 * k + 2]) for k in range(CARDS)]
